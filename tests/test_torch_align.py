@@ -1,0 +1,249 @@
+"""The port's align stage (CPU, plain DP) vs the JAX package's, on a simulated genome.
+
+The JAX CPU path scores candidates with the one-pass gather engine
+(``band_dp_batch``); the port runs the two-pass v3 engine. Scores, winners
+and counts are exact. Alignment ends and starts may differ only where
+several optimal alignments tie: the v3 forward pass keeps, among cells
+tied at the best score, the lowest band offset, while the one-pass engine
+keeps the first row. Every differing span is checked to be optimal.
+"""
+
+import inspect
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from svjedi_tpu.align import device as jdev
+from svjedi_tpu.align import pipeline as jpipe
+from svjedi_tpu.align.decoy import build_decoy
+from svjedi_tpu.align.extend import DPParams as JaxDPParams
+from svjedi_tpu.align.index import build_panel_index
+from svjedi_tpu.align.seed import ChainParams, seed_candidates
+from svjedi_tpu.config import AlignConfig, GenotypeConfig, resolve_min_count_density
+from svjedi_tpu.graph.build import build_graph
+from svjedi_tpu.graph.cluster import build_panel
+from svjedi_tpu.graph.svparse import parse_vcf_svs
+from svjedi_tpu.io import sim
+from svjedi_tpu.io.fastq import read_reads
+from svjedi_tpu_torch.align import device as tdev
+from svjedi_tpu_torch.align import pipeline as tpipe
+
+# The plain DP runs thousands of tiny ops per call: one thread each is
+# faster than many, and keeps parallel test workers off each other's cores.
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
+WINNER_FIELDS = ("read", "cluster", "path", "strand", "score", "qs", "qe",
+                 "ts", "te", "mapq", "anchor_ts", "anchor_te")
+COPIED = (
+    "Winners", "_malloc_trim", "revcomp_codes", "_pick_bucket",
+    "candidate_windows", "candidate_layout", "compute_mapq", "finalize_chunk",
+    "prune_secondaries", "cross_cluster_prune", "count_support", "_audit_line",
+    "_chunk_device_bytes",
+)
+
+
+@pytest.fixture(scope="module")
+def bundle(tmp_path_factory):
+    """Two chromosomes, 8 DEL/INS/INV, ~12x of 3 kb reads, decoy on."""
+    tmp = tmp_path_factory.mktemp("torch_align")
+    s = sim.simulate(
+        seed=11, chrom_lengths={"chrA": 32000, "chrB": 26000}, n_svs=8,
+        sv_types=("DEL", "INS", "INV"),
+    )
+    names, seqs = sim.simulate_reads(
+        np.random.default_rng(11), s.haplotypes, coverage=12.0,
+        mean_len=3000, sd_len=1000,
+    )
+    sim.write_truth_vcf(s, tmp / "truth.vcf")
+    sim.write_fastq(tmp / "reads.fastq", names, seqs)
+    cfg = AlignConfig()
+    parsed = parse_vcf_svs(tmp / "truth.vcf",
+                           {c: len(x) for c, x in s.chroms.items()})
+    panel = build_panel(
+        build_graph(s.chroms, parsed), flank=cfg.flank,
+        cluster_gap=cfg.cluster_gap,
+        max_paths_per_cluster=cfg.max_paths_per_cluster,
+        max_hops_per_path=cfg.max_hops_per_path,
+    )
+    index = build_panel_index(panel, k=cfg.kmer, w=cfg.window,
+                              max_hits_per_minimizer=cfg.max_hits_per_minimizer)
+    decoy = build_decoy(panel, k=cfg.kmer, w=cfg.window,
+                        max_hits_per_minimizer=cfg.max_hits_per_minimizer)
+    return {
+        "panel": panel, "index": index, "decoy": decoy, "cfg": cfg,
+        "gcfg": GenotypeConfig(), "reads": read_reads(str(tmp / "reads.fastq")),
+    }
+
+
+@pytest.fixture(scope="module")
+def runs(bundle):
+    b = bundle
+    args = (b["reads"], b["panel"], b["index"], b["cfg"], b["gcfg"])
+    jax_run = jpipe.align_and_count(*args, decoy=b["decoy"])
+    port_run = tpipe.align_and_count(*args, device=CPU, decoy=b["decoy"])
+    return jax_run, port_run
+
+
+def test_align_and_count_matches_jax(runs):
+    (jcounts, _, jw), (tcounts, _, tw) = runs
+    assert len(tw.read) == len(jw.read) > 50
+    for f in ("read", "cluster", "path", "strand", "score", "mapq"):
+        np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f), err_msg=f)
+    same = np.ones(len(jw.read), dtype=bool)
+    for f in ("qs", "qe", "ts", "te"):
+        same &= getattr(tw, f) == getattr(jw, f)
+    # Ties between optimal alignments are rare; their spans are checked
+    # in test_chunk_spans_are_optimal.
+    assert same.mean() >= 0.9
+    assert tcounts == jcounts
+    assert sum(v[0] + v[1] for v in tcounts.values()) > 0
+
+
+@pytest.fixture(scope="module")
+def chunk(bundle):
+    """One chunk, seeded once, through the JAX and the port dispatch."""
+    reads, panel, index, cfg = (bundle[k] for k in ("reads", "panel", "index", "cfg"))
+    cands = seed_candidates(reads, index, chain_params=ChainParams(
+        min_anchors=cfg.min_anchors, max_chains=cfg.max_chains,
+        max_gap=cfg.chain_max_gap, drift_abs=cfg.chain_drift_abs,
+        drift_permille=cfg.chain_drift_permille, block_rows=cfg.block_rows,
+        ext_min_anchors=cfg.chain_ext_min_anchors,
+    ))
+    jdisp = jpipe.dispatch_chunk(reads, panel, index, cands, cfg,
+                                 jdev.upload(reads.codes, panel))
+    (jrows,) = jpipe.collect_outs([jdisp])
+    tdisp = tpipe.dispatch_chunk(reads, panel, index, cands, cfg,
+                                 tdev.upload(reads.codes, panel, CPU))
+    (trows,) = tpipe.collect_outs([tdisp])
+    return cands, jdisp, jrows, tdisp, trows
+
+
+def _windows(disp, cand, m, bucket, cfg):
+    """(q, t) window rows of candidates ``cand`` in ``bucket``-row windows."""
+    meta = np.stack([disp.q_start[cand], m, disp.t_start[cand],
+                     disp.t_lo[cand], disp.t_hi[cand]]).astype(np.int32)
+    qT, tT = tdev._prep_v3_windows_packed(
+        *disp.device_data.packed_words(), torch.from_numpy(meta), bucket,
+        cfg.band,
+    )
+    return qT.T.numpy().copy(), tT.T.numpy().copy()
+
+
+def test_chunk_spans_are_optimal(bundle, chunk):
+    from _span_check import assert_spans_optimal
+
+    reads, index, cfg = bundle["reads"], bundle["index"], bundle["cfg"]
+    cands, jdisp, jrows, tdisp, trows = chunk
+    n = len(cands)
+    # One-pass window coordinates per candidate: [score, qs, ts, qe, te].
+    jwin = np.full((n, 5), -1, dtype=np.int64)
+    for (sel, _, _, _), host in zip(jdisp.batches, jrows):
+        jwin[sel] = host[: len(sel)]
+    jw, jwi = jpipe.finalize_chunk(reads, index, cfg, jdisp, jrows)
+    tw, twi = tpipe.finalize_chunk(reads, index, cfg, tdisp, trows)
+    np.testing.assert_array_equal(tdisp.block_score, jdisp.block_score)
+    np.testing.assert_array_equal(twi, jwi)
+    for f in ("read", "cluster", "path", "strand", "score"):
+        np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f))
+
+    # Forward ends that differ must end an optimal alignment.
+    m = tpipe.candidate_windows(reads, index, cands, cfg)[2].astype(np.int32)
+    scored = np.flatnonzero(tdisp.bucket_of_cand > 0)
+    diff = scored[(tdisp.qe_win[scored] != jwin[scored, 3])
+                  | (tdisp.te_win[scored] != jwin[scored, 4])]
+    assert len(diff) <= 0.1 * len(scored)
+    for bucket in np.unique(tdisp.bucket_of_cand[diff]):
+        cand = diff[tdisp.bucket_of_cand[diff] == bucket]
+        q, t = _windows(tdisp, cand, m[cand], int(bucket), cfg)
+        zeros = np.zeros(len(cand), np.int64)
+        out = {"score": tdisp.block_score[cand], "qs": zeros, "ts": zeros,
+               "qe": tdisp.qe_win[cand], "te": tdisp.te_win[cand]}
+        assert_spans_optimal(q, t, cfg.band, JaxDPParams(), out,
+                             np.arange(len(cand)))
+
+    # Reverse-pass starts: every winner's first-block span is optimal.
+    tpipe.dispatch_rev(cfg, tdisp, tw, twi)
+    (rev_rows,) = tpipe.collect_rev([tdisp])
+    tpipe.patch_rev(cfg, tdisp, tw, rev_rows)
+    t_rel = (cands.d0[twi].astype(np.int64) + tdisp.rw_start[twi]
+             - cfg.band // 2)
+    span = {
+        "score": tdisp.block_score[twi],
+        "qs": tw.qs - tdisp.rw_start[twi], "ts": tw.ts - t_rel,
+        "qe": tdisp.qe_win[twi], "te": tdisp.te_win[twi],
+    }
+    for bucket in np.unique(tdisp.bucket_of_cand[twi]):
+        rows = np.flatnonzero(tdisp.bucket_of_cand[twi] == bucket)
+        q, t = _windows(tdisp, twi[rows], m[twi[rows]], int(bucket), cfg)
+        assert_spans_optimal(q, t, cfg.band, JaxDPParams(),
+                             {k: v[rows] for k, v in span.items()},
+                             np.arange(len(rows)))
+    same = (tw.qs == jwin[twi, 1] + tdisp.rw_start[twi])
+    assert same.mean() >= 0.9
+
+
+@pytest.mark.parametrize("name", COPIED)
+def test_copied_helper_source_is_verbatim(name):
+    ours = inspect.getsource(getattr(tpipe, name))
+    theirs = inspect.getsource(getattr(jpipe, name))
+    if name == "_audit_line":  # the one relative import becomes absolute
+        theirs = theirs.replace("from ..graph.build", "from svjedi_tpu.graph.build")
+    assert ours == theirs
+    src = inspect.getsource(tpipe)
+    assert re.search(
+        rf"# Copied (verbatim )?from svjedi_tpu/align/pipeline.py:{name}[.;]", src
+    )
+
+
+def test_copied_helpers_behave_like_originals(bundle, chunk):
+    reads, panel, index, cfg = (bundle[k] for k in ("reads", "panel", "index", "cfg"))
+    rng = np.random.default_rng(4)
+    codes = rng.integers(0, 5, 500).astype(np.int8)
+    np.testing.assert_array_equal(tpipe.revcomp_codes(codes),
+                                  jpipe.revcomp_codes(codes))
+    for m in (0, 512, 513, 30720, 40000):
+        assert tpipe._pick_bucket(m, cfg.buckets) == jpipe._pick_bucket(m, cfg.buckets)
+    for nb in (1, 4096, 5000, 1 << 20):
+        assert tpipe._chunk_device_bytes(nb) == jpipe._chunk_device_bytes(nb)
+    tpipe._malloc_trim()
+    args = [rng.integers(0, 400, 64) for _ in range(5)]
+    np.testing.assert_array_equal(tpipe.compute_mapq(*args),
+                                  jpipe.compute_mapq(*args))
+
+    cands, jdisp, jrows, _, _ = chunk
+    for a, b in zip(tpipe.candidate_windows(reads, index, cands, cfg),
+                    jpipe.candidate_windows(reads, index, cands, cfg)):
+        np.testing.assert_array_equal(a, b)
+    dd = jdisp.device_data
+    for a, b in zip(tpipe.candidate_layout(reads, index, cands, cfg, dd),
+                    jpipe.candidate_layout(reads, index, cands, cfg, dd)):
+        np.testing.assert_array_equal(a, b)
+
+    jw, jwi = jpipe.finalize_chunk(reads, index, cfg, jdisp, jrows)
+    tw, twi = tpipe.finalize_chunk(reads, index, cfg, jdisp, jrows)
+    np.testing.assert_array_equal(twi, jwi)
+    for f in WINNER_FIELDS:
+        np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f), err_msg=f)
+    jw = jpipe.cross_cluster_prune(jpipe.prune_secondaries(jw, reads, cfg), reads)
+    tw = tpipe.cross_cluster_prune(tpipe.prune_secondaries(tw, reads, cfg), reads)
+    for f in WINNER_FIELDS:
+        np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f), err_msg=f)
+    density = resolve_min_count_density(bundle["gcfg"], cfg)
+    for w in (jw, tw):  # audit lines with and without the stats pass
+        assert tpipe.count_support(panel, w, reads, 100, True, density) == \
+            jpipe.count_support(panel, w, reads, 100, True, density)
+        jpipe.compute_winner_stats(reads, panel, w, cfg)
+
+
+def test_compute_winner_stats_matches_jax(bundle, chunk):
+    reads, panel, index, cfg = (bundle[k] for k in ("reads", "panel", "index", "cfg"))
+    _, jdisp, jrows, _, _ = chunk
+    jw, _ = jpipe.finalize_chunk(reads, index, cfg, jdisp, jrows)
+    tw, _ = tpipe.finalize_chunk(reads, index, cfg, jdisp, jrows)
+    jpipe.compute_winner_stats(reads, panel, jw, cfg)
+    tpipe.compute_winner_stats(reads, panel, tw, cfg, CPU)
+    for f in ("matches", "blocklen", "rescore_deficit", "rescore_flag"):
+        np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f), err_msg=f)
