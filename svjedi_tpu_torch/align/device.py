@@ -1,8 +1,17 @@
-"""Device-resident read/panel buffers and the v3 window prep, on PyTorch.
+"""Device-resident read/panel buffers and the DP engines' window fetch, on PyTorch.
 
-Counterpart of ``svjedi_tpu/align/device.py`` for the v3 engine. The buffer
-layout is the JAX package's, byte for byte, so uploaded state can be
-compared exactly:
+Counterpart of ``svjedi_tpu/align/device.py``. Three engines score windows:
+
+- ``v3``: window prep from 2-bit words, then the two-pass v3 kernel
+  (``kernels/band_dp_v3.py``); the default on a CUDA device;
+- ``dma``: the one-pass kernel that fetches its own windows from the flat
+  buffers (``kernels/band_dp_dma.py``);
+- ``gather``: a byte gather of the windows, then the one-pass
+  ``band_dp_batch`` (``align/extend.py``); the default on the CPU, as in
+  the JAX package.
+
+The buffer layout is the JAX package's, byte for byte, so uploaded state
+can be compared exactly:
 
 - ``reads2`` = fwd codes ++ revcomp codes ++ sentinel bases. The forward
   half is padded with A (0) up to ``n_cap``, a power of two >= 4096;
@@ -20,15 +29,20 @@ right shift logical.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .extend import DPParams
+from .extend import DPParams, band_dp_batch
 
 #: Buffer lengths are padded to multiples of this (the JAX layout's tile).
 ALIGN = 1024
+#: Row order of the packed metadata matrix consumed by
+#: :func:`window_score_packed`.
+META_ROWS = ("q_start", "m", "t_start", "t_lo", "t_hi")
+#: Column order of its packed (P, 5) int32 result.
+OUT_COLS = ("score", "qs", "ts", "qe", "te")
 _MASK32 = 0xFFFFFFFF
 
 
@@ -204,12 +218,18 @@ def _prep_v3_windows_packed(rw, rn, pw, pn, meta: torch.Tensor, bucket: int,
 # host-to-device copy; each batch's prep slices its block out on the device.
 
 
-def _prep_v3_flat(rw, rn, pw, pn, flat: torch.Tensor, off: int, Ppad: int,
-                  bucket: int, band: int):
-    """Slice one batch block out of the flat buffer and prep its windows."""
+def _flat_block(flat: torch.Tensor, off: int, Ppad: int):
+    """One batch block of the flat buffer: (``[n_valid] ++ bounds``, meta)."""
     grid = Ppad // 128
     nvb = flat[off : off + 1 + grid]
     meta = flat[off + 1 + grid : off + 1 + grid + 5 * Ppad].view(5, Ppad)
+    return nvb, meta
+
+
+def _prep_v3_flat(rw, rn, pw, pn, flat: torch.Tensor, off: int, Ppad: int,
+                  bucket: int, band: int):
+    """Slice one batch block out of the flat buffer and prep its windows."""
+    nvb, meta = _flat_block(flat, off, Ppad)
     qT, tT = _prep_v3_windows_packed(rw, rn, pw, pn, meta, bucket, band)
     return qT, tT, nvb
 
@@ -284,3 +304,111 @@ def window_score_v3_rev_flat(
     rw, rn, pw, pn = data.packed_words()
     qT, tT, nv = _prep_v3_flat(rw, rn, pw, pn, flat, off, Ppad, bucket, band)
     return band_dp_v3_rev(qT, tT, bucket, band, params, nv)
+
+
+def window_score_packed_flat(
+    data: DeviceData,
+    flat: torch.Tensor,
+    off: int,
+    Ppad: int,
+    bucket: int,
+    band: int,
+    params: DPParams,
+    engine: str,
+) -> torch.Tensor:
+    """One-pass engine reading its meta block from the flat buffer."""
+    _, meta = _flat_block(flat, off, Ppad)
+    return window_score_packed(
+        data.reads2, data.panel_padded, meta, bucket, band, params, engine
+    )
+
+
+def window_score_packed(
+    reads2: torch.Tensor,
+    panel_padded: torch.Tensor,
+    meta: torch.Tensor,  # (5, P) int32, rows per META_ROWS
+    bucket: int,
+    band: int,
+    params: DPParams,
+    engine: str,
+) -> torch.Tensor:
+    """:func:`window_score` with one (5, P) int32 matrix in and one (P, 5)
+    int32 matrix out (columns per OUT_COLS), which the caller keeps on the
+    device and fetches in bulk."""
+    q_start, m, t_start, t_lo, t_hi = (meta[i] for i in range(5))
+    if engine == "dma":
+        from ..kernels.band_dp_dma import band_dp_dma_raw
+
+        out = band_dp_dma_raw(
+            reads2, panel_padded, q_start, t_start, m, t_lo, t_hi,
+            bucket=bucket, band=band, params=params,
+        )
+        return out[:, :5]
+    res = window_score(
+        reads2, panel_padded, q_start, m, t_start, t_lo, t_hi,
+        bucket=bucket, band=band, params=params, engine=engine,
+    )
+    return torch.stack([res[c] for c in OUT_COLS], dim=1)
+
+
+def window_score(
+    reads2: torch.Tensor,
+    panel_padded: torch.Tensor,
+    q_start: torch.Tensor,  # (P,) int32 window start in reads2
+    m: torch.Tensor,  # (P,) int32 read-window length
+    t_start: torch.Tensor,  # (P,) int32 target window lane-0 in panel_padded
+    t_lo: torch.Tensor,  # (P,) int32 first valid index of the path
+    t_hi: torch.Tensor,  # (P,) int32 one-past-last valid index
+    bucket: int,
+    band: int,
+    params: DPParams,
+    engine: str,  # "dma" (the fused-fetch kernel) or "gather"
+) -> Dict[str, torch.Tensor]:
+    """Fetch fixed-shape windows on the device and run the one-pass DP."""
+    if engine == "dma":
+        from ..kernels.band_dp_dma import band_dp_dma
+
+        return band_dp_dma(
+            reads2, panel_padded, q_start, t_start, m, t_lo, t_hi,
+            bucket=bucket, band=band, params=params,
+        )
+    if engine != "gather":
+        raise ValueError(f"window_score: engine must be 'dma' or 'gather', got {engine!r}")
+    q, t = gather_windows(
+        reads2, panel_padded, q_start, m, t_start, t_lo, t_hi, bucket, band
+    )
+    return band_dp_batch(q, t, band, params)
+
+
+def gather_windows(
+    reads2: torch.Tensor,
+    panel_padded: torch.Tensor,
+    q_start: torch.Tensor,
+    m: torch.Tensor,
+    t_start: torch.Tensor,
+    t_lo: torch.Tensor,
+    t_hi: torch.Tensor,
+    bucket: int,
+    band: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-shape windows ``q (P, bucket)`` and ``t (P, bucket + band)``.
+
+    The byte gather of the ``gather`` engine
+    (``svjedi_tpu/align/device.py:556-564``): read rows at or beyond ``m``
+    and target lanes outside ``[t_lo, t_hi)`` are sentinel 4. A byte
+    outside a buffer reads as 4 where JAX clamps the index; the upload's
+    padding keeps every window inside, so the two agree.
+    """
+    dev = reads2.device
+    i64 = torch.int64
+
+    def fetch(buf, start, width, lo, hi):
+        idx = start.to(i64)[:, None] + torch.arange(width, device=dev, dtype=i64)
+        ok = (idx >= lo[:, None]) & (idx < hi[:, None])
+        ok &= (idx >= 0) & (idx < buf.shape[0])
+        return torch.where(ok, buf[idx.clamp(0, buf.shape[0] - 1)], 4).to(torch.int8)
+
+    q_start64 = q_start.to(i64)
+    q = fetch(reads2, q_start64, bucket, q_start64, q_start64 + m.to(i64))
+    t = fetch(panel_padded, t_start, bucket + band, t_lo.to(i64), t_hi.to(i64))
+    return q, t

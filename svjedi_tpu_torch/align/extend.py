@@ -1,28 +1,31 @@
-"""Banded affine-gap local alignment with match statistics (the audit DP).
+"""Banded affine-gap local alignment, batched (the extend stage), on PyTorch.
 
-PyTorch counterpart of ``svjedi_tpu/align/extend.py``. Only what the ``run``
-path needs lives here: the scoring constants and :func:`band_dp_stats_batch`,
-the audit re-score of winning spans. It is plain PyTorch (a Python loop over
-read rows, each row one set of tensor ops over ``(P, band)``) on whichever
-device its inputs lie; the JAX version is an XLA ``lax.scan``, not a Pallas
-kernel.
+PyTorch counterpart of ``svjedi_tpu/align/extend.py``: the scoring
+constants, :func:`band_dp_batch` (the one-pass DP of the ``gather`` engine,
+which reports starts and ends) and :func:`band_dp_stats_batch` (the audit
+re-score of winning spans, which reports match statistics). Both are plain
+PyTorch on whichever device their inputs lie: one Python iteration per read
+row, each row one set of tensor ops over ``(P, band)``. The JAX versions are
+XLA ``lax.scan`` loops, not Pallas kernels.
 
-The horizontal-gap closure is a prefix max instead of the JAX log-shift
-cascade. Because every cell is floored at 0, for ``k >= 1``
+The two share one row loop (:func:`_band_dp_rows`); they differ only in what
+rides along each cell's optimal path. The horizontal-gap closure is a prefix
+max instead of the JAX log-shift cascade. Because every cell is floored at
+0, for ``k >= 1``
 
     F[k] = max_{j<k} (htmp[j] + oe + ext*(k-1-j))
          = ext*k + max_{j<k} (htmp[j] + oe - ext*(j+1))
 
 exactly in integers, and the cascade's strict ``>`` keeps, among tied
 sources, the one nearest to ``k`` (the largest ``j``). Packing ``j`` into
-the low bits of the prefix-max key reproduces that choice, so the statistics
-that ride along are the cascade's.
+the low bits of the prefix-max key reproduces that choice, so the riders
+are the cascade's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -42,22 +45,31 @@ class DPParams:
 
 
 def _shift_left(a: torch.Tensor, fill: int) -> torch.Tensor:
-    """a[:, k] <- a[:, k+1], ``fill`` in the last column."""
-    return torch.cat([a[:, 1:], torch.full_like(a[:, :1], fill)], dim=1)
+    """a[..., k] <- a[..., k+1], ``fill`` in the last column."""
+    return torch.cat([a[..., 1:], torch.full_like(a[..., :1], fill)], dim=-1)
 
 
-def band_dp_stats_batch(
-    q: torch.Tensor,  # (P, M) int8 read windows, padded with 4 (N)
-    t: torch.Tensor,  # (P, M + band) int8 target windows, padded with 4
+def _band_dp_rows(
+    q: torch.Tensor,
+    t: torch.Tensor,
     band: int,
-    params: DPParams = DPParams(),
-) -> Dict[str, torch.Tensor]:
-    """Banded local alignment tracking exact-match statistics.
+    params: DPParams,
+    rider0: torch.Tensor,
+    diag_step: Optional[Callable[[torch.Tensor], torch.Tensor]],
+    reset_rider: Callable[[int], torch.Tensor],
+    per_cell: bool = False,
+):
+    """The row loop of :func:`band_dp_batch` and :func:`band_dp_stats_batch`.
 
-    Cell (i, k) pairs read position i with target-window position i + k.
-    Returns per problem the best score, its end ``(qe, te)``, and along the
-    optimal path ending there the exact base matches (``matches``) and the
-    diagonal steps (``n_diag``); ties break as in the JAX version.
+    ``rider0`` is an ``(R, P, band)`` int32 stack of per-cell values carried
+    along the optimal path (the same start for the H and V states);
+    ``diag_step(is_match)`` is what a diagonal step adds to them (None: nothing)
+    and ``reset_rider(i)`` what a cell that resets to 0 at row ``i`` takes.
+    Returns (best, riders at the best cell (R, P), qe, te). The best end is
+    the first row reaching the best score, and within that row the lowest
+    band offset among its maxima; with ``per_cell`` (the one-pass kernels'
+    rule) each band cell keeps the first row reaching its own best, and the
+    lowest band offset among the cells at the maximum wins.
     """
     P, M = q.shape
     B = band
@@ -65,6 +77,7 @@ def band_dp_stats_batch(
     oe = params.open_extend
     ext = params.gap_extend
     i32 = torch.int32
+    R = rider0.shape[0]
 
     q32 = q.to(i32)
     t32 = t.to(i32)
@@ -78,14 +91,12 @@ def band_dp_stats_batch(
 
     H = torch.zeros((P, B), dtype=i32, device=dev)
     V = torch.full((P, B), NEG, dtype=i32, device=dev)
-    mh = torch.zeros_like(H)
-    dh = torch.zeros_like(H)
-    mv = torch.zeros_like(H)
-    dv = torch.zeros_like(H)
-    best = torch.zeros(P, dtype=i32, device=dev)
-    bm = torch.zeros_like(best)
-    bd = torch.zeros_like(best)
-    bqe = torch.full((P,), -1, dtype=i32, device=dev)
+    rh = rider0.clone()
+    rv = rider0.clone()
+    shape = (P, B) if per_cell else (P,)
+    best = torch.zeros(shape, dtype=i32, device=dev)
+    brider = torch.zeros((R, *shape), dtype=i32, device=dev)
+    bqe = torch.full(shape, -1, dtype=i32, device=dev)
     bte = torch.full((P,), -1, dtype=i32, device=dev)
 
     for i in range(M):
@@ -94,23 +105,20 @@ def band_dp_stats_batch(
         is_match = (qi == trow) & (qi < 4)
         sub = is_match.to(i32) * (params.match - params.mismatch) + params.mismatch
 
-        # Vertical gap: parents at k+1; gap bases add no match/diag step.
+        # Vertical gap: parents at k+1.
         v_open = _shift_left(H, NEG) + oe
         v_ext = _shift_left(V, NEG) + ext
         V_new = torch.maximum(v_open, v_ext)
-        take_open = v_open >= v_ext
-        mv_new = torch.where(take_open, _shift_left(mh, 0), _shift_left(mv, 0))
-        dv_new = torch.where(take_open, _shift_left(dh, 0), _shift_left(dv, 0))
+        rv_new = torch.where(v_open >= v_ext, _shift_left(rh, 0), _shift_left(rv, 0))
 
+        # Diagonal + vertical + reset-to-zero.
         diag = H + sub
         htmp = torch.maximum(diag, V_new)
-        take_diag = diag >= V_new
-        m_t = torch.where(take_diag, mh + is_match.to(i32), mv_new)
-        d_t = torch.where(take_diag, dh + 1, dv_new)
+        r_diag = rh if diag_step is None else rh + diag_step(is_match)
+        r_t = torch.where(diag >= V_new, r_diag, rv_new)
         reset = htmp <= 0
         htmp = htmp.clamp_min(0)
-        m_t = m_t.masked_fill(reset, 0)
-        d_t = d_t.masked_fill(reset, 0)
+        r_t = torch.where(reset, reset_rider(i), r_t)
 
         # Horizontal gap runs: exclusive prefix max over sources j < k.
         key = torch.cummax(htmp.to(torch.int64) * B + key_bias, dim=1).values
@@ -119,28 +127,93 @@ def band_dp_stats_batch(
         F = (torch.div(prev - src, B, rounding_mode="floor") + ext_k).to(i32)
         take_f = (F > htmp) & (k_idx > 0)
         H_new = torch.where(take_f, F, htmp)
-        mh_new = torch.where(take_f, torch.gather(m_t, 1, src), m_t)
-        dh_new = torch.where(take_f, torch.gather(d_t, 1, src), d_t)
+        rh_new = torch.where(
+            take_f, torch.gather(r_t, 2, src.expand(R, P, B)), r_t
+        )
+
+        H, V, rh, rv = H_new, V_new, rh_new, rv_new
+        if per_cell:
+            improved = H > best
+            best = torch.where(improved, H, best)
+            brider = torch.where(improved, rh, brider)
+            bqe = torch.where(improved, i, bqe)
+            continue
 
         # Track the global best end per problem (first column among ties).
         row_best = H_new.max(dim=1).values
-        row_arg = torch.where(
-            H_new == row_best[:, None], k_idx, B
-        ).min(dim=1).values
+        row_arg = torch.where(H_new == row_best[:, None], k_idx, B).min(dim=1).values
         improved = row_best > best
-        pick = row_arg[:, None].to(torch.int64)
+        pick = row_arg.to(torch.int64).expand(R, 1, P).transpose(1, 2)
         best = torch.where(improved, row_best, best)
-        bm = torch.where(improved, torch.gather(mh_new, 1, pick)[:, 0], bm)
-        bd = torch.where(improved, torch.gather(dh_new, 1, pick)[:, 0], bd)
+        brider = torch.where(improved, torch.gather(rh_new, 2, pick)[:, :, 0], brider)
         bqe = torch.where(improved, i, bqe)
         bte = torch.where(improved, i + row_arg, bte)
 
-        H, V, mh, dh, mv, dv = H_new, V_new, mh_new, dh_new, mv_new, dv_new
+    if per_cell:
+        cell_best = best
+        best = cell_best.max(dim=1).values
+        lane = torch.where(cell_best == best[:, None], k_idx, B).min(dim=1).values
+        pick = lane.to(torch.int64)[:, None]
+        brider = torch.gather(brider, 2, pick.expand(R, P, 1))[:, :, 0]
+        bqe = torch.gather(bqe, 1, pick)[:, 0]
+        bte = bqe + lane
+    return best, brider, bqe, bte
 
-    return {
-        "score": best,
-        "matches": bm,
-        "n_diag": bd,
-        "qe": bqe,
-        "te": bte,
-    }
+
+def band_dp_batch(
+    q: torch.Tensor,  # (P, M) int8 read windows, padded with 4 (N)
+    t: torch.Tensor,  # (P, M + band) int8 target windows, padded with 4
+    band: int,
+    params: DPParams = DPParams(),
+    per_cell: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Batched banded local alignment (the one-pass ``gather`` engine).
+
+    Cell (i, k) pairs read position i with target-window position j = i + k
+    (the caller centres the band by slicing the target at d0 - band//2).
+    Returns per problem the best score and the inclusive window coordinates
+    of the alignment span: ``qs/qe`` (read) and ``ts/te`` (target window).
+    A problem scoring 0 reports ``qs = ts = 0`` and ``qe = te = -1``.
+    ``per_cell`` picks the one-pass kernels' end among tied optima instead
+    (:func:`_band_dp_rows`; ``kernels/band_dp.py``).
+    """
+    P = q.shape[0]
+    dev = q.device
+    k_idx = torch.arange(band, device=dev, dtype=torch.int32).expand(P, band)
+    # A fresh alignment's first aligned cell is the diagonal successor (i+1, k).
+    best, (bqs, bts), bqe, bte = _band_dp_rows(
+        q, t, band, params,
+        rider0=torch.stack([torch.zeros_like(k_idx), k_idx]),
+        diag_step=None,
+        reset_rider=lambda i: torch.stack(
+            [torch.full_like(k_idx, i + 1), k_idx + (i + 1)]
+        ),
+        per_cell=per_cell,
+    )
+    return {"score": best, "qs": bqs, "ts": bts, "qe": bqe, "te": bte}
+
+
+def band_dp_stats_batch(
+    q: torch.Tensor,  # (P, M) int8 read windows, padded with 4 (N)
+    t: torch.Tensor,  # (P, M + band) int8 target windows, padded with 4
+    band: int,
+    params: DPParams = DPParams(),
+) -> Dict[str, torch.Tensor]:
+    """Banded local alignment tracking exact-match statistics.
+
+    Same band semantics as :func:`band_dp_batch`. Returns per problem the
+    best score, its end ``(qe, te)``, and along the optimal path ending there
+    the exact base matches (``matches``) and the diagonal steps
+    (``n_diag``); ties break as in the JAX version.
+    """
+    P = q.shape[0]
+    zeros = torch.zeros((2, P, band), dtype=torch.int32, device=q.device)
+    best, (bm, bd), bqe, bte = _band_dp_rows(
+        q, t, band, params,
+        rider0=zeros,
+        diag_step=lambda is_match: torch.stack(
+            [is_match.to(torch.int32), torch.ones_like(zeros[0])]
+        ),
+        reset_rider=lambda i: zeros,
+    )
+    return {"score": best, "matches": bm, "n_diag": bd, "qe": bqe, "te": bte}

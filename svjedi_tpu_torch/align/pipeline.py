@@ -1,10 +1,13 @@
 """Alignment pipeline: seeds → bucketed DP batches → winners → allele counts.
 
-PyTorch counterpart of ``svjedi_tpu/align/pipeline.py``, v3 engine only:
-every candidate's DP forward pass and the winners' reverse pass run through
-``kernels/band_dp_v3`` on one ``torch.device`` (the CUDA kernel on a card,
-its plain version on the CPU). Seeding, chaining and the decoy competition
-are the JAX package's shared host code; the minimizer scan runs on the host.
+PyTorch counterpart of ``svjedi_tpu/align/pipeline.py`` on one
+``torch.device``. Candidates are scored by one of three engines
+(``align/device.py``), chosen as the JAX package chooses (:func:`resolve_engine`):
+``gather`` on the CPU (the one-pass ``band_dp_batch``), ``v3`` on a CUDA
+device (the two-pass v3 kernel: forward pass on every candidate, reverse pass
+on the winners), or ``dma`` when named (the one-pass fused-fetch kernel).
+Seeding, chaining and the decoy competition are the JAX package's shared
+host code; the minimizer scan runs on the host.
 
 The numpy-only helpers are verbatim copies of the JAX module's (that module
 imports JAX, so they cannot be imported from it); each names its source and
@@ -207,13 +210,14 @@ class ChunkDispatch:
     returns (score, qe, te) for every candidate; start coordinates come
     from a reverse pass dispatched only for the winning candidates
     (:func:`dispatch_rev`), so the per-candidate window metadata is kept
-    here between the passes.
+    here between the passes. The one-pass engines return starts too.
     """
 
     cands: Candidates
     rw_start: np.ndarray
-    #: per batch: (candidate indices, device results, kind, bucket); kind is
-    #: always "v3" ((Ppad, 3) [score, qe, te], qs/ts from the reverse pass)
+    #: per batch: (candidate indices, device results, kind, bucket) where
+    #: kind is "full" ((Ppad, 5) [score,qs,ts,qe,te]) or "v3"
+    #: ((Ppad, 3) [score,qe,te], needs the reverse pass for qs/ts)
     batches: List[Tuple[np.ndarray, object, str, int]] = field(
         default_factory=list
     )
@@ -270,6 +274,21 @@ def candidate_layout(
     return rw_start, m.astype(np.int32), keep, q_start, t_start, t_lo, t_hi
 
 
+#: The DP engines :func:`dispatch_chunk` runs.
+ENGINES = ("gather", "dma", "v3")
+
+
+def resolve_engine(engine: Optional[str], device: torch.device) -> str:
+    """``engine``, or the JAX package's choice where it is None: ``gather``
+    on the CPU, ``v3`` on any other device
+    (``svjedi_tpu/align/pipeline.py:355``)."""
+    if engine is None:
+        return "gather" if device.type == "cpu" else "v3"
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    return engine
+
+
 def dispatch_chunk(
     reads: ReadSet,
     panel: Panel,
@@ -278,17 +297,20 @@ def dispatch_chunk(
     cfg: AlignConfig,
     device_data,
     batch_size: int = 32768,
+    engine: Optional[str] = None,
 ) -> ChunkDispatch:
-    """Enqueue all forward DP batches for one chunk; results stay on device.
+    """Enqueue all DP batches for one chunk; results stay on device.
 
     Every batch's ``[n_valid, row bounds, meta]`` block goes to the device
     in one copy; same-bucket batches merge up to ``batch_size`` problems per
-    kernel launch.
+    launch. ``engine`` (see :func:`resolve_engine`) decides the batch kind:
+    "full" for the one-pass engines, "v3" for the v3 forward pass.
     """
     from . import device as dev
 
     B = cfg.band
     params = _dp_params(cfg)
+    engine = resolve_engine(engine, dev.device_of(device_data))
     disp = ChunkDispatch(
         cands=cands, rw_start=np.zeros(len(cands), dtype=np.int64)
     )
@@ -319,8 +341,8 @@ def dispatch_chunk(
     for bucket in sorted(set(bucket_of.tolist())):
         sel_all = order[bucket_of == bucket]
         # Sort by window length: each 128-problem group then runs only
-        # ceil(max m in group) rows (the per-group row bound) instead of
-        # the full bucket.
+        # ceil(max m in group) rows (the v3 per-group row bound) instead of
+        # the full bucket, and a one-pass kernel block holds similar lengths.
         sel_all = sel_all[np.argsort(m32[sel_all], kind="stable")]
         for lo in range(0, len(sel_all), batch_size):
             sel = sel_all[lo : lo + batch_size]
@@ -337,10 +359,16 @@ def dispatch_chunk(
             off += dev.flat_block_len(Ppad)
     flat = dev.upload_flat_meta(blocks, device=dev.device_of(device_data))
     for sel, off_b, Ppad, bucket in plans:
-        out = dev.window_score_v3_fwd_flat(
-            device_data, flat, off_b, Ppad, bucket, band=B, params=params,
-        )
-        disp.batches.append((sel, out, "v3", bucket))
+        if engine == "v3":
+            out = dev.window_score_v3_fwd_flat(
+                device_data, flat, off_b, Ppad, bucket, band=B, params=params,
+            )
+        else:
+            out = dev.window_score_packed_flat(
+                device_data, flat, off_b, Ppad, bucket, band=B, params=params,
+                engine=engine,
+            )
+        disp.batches.append((sel, out, "v3" if engine == "v3" else "full", bucket))
     return disp
 
 
@@ -1121,6 +1149,7 @@ def align_and_count(
     decoy=None,
     devices: Optional[Sequence] = None,
     flush_every: Optional[int] = None,
+    engine: Optional[str] = None,
 ):
     """Full aligner stage: reads + panel → (counts, audit, winners).
 
@@ -1128,12 +1157,15 @@ def align_and_count(
     ``device``, a seeder thread computes chunk i+1's candidates (host
     numpy/C++ only); every device call stays on the calling thread.
     Results are fetched in flushes bounded by a device-memory budget.
+    ``engine`` is the DP engine (:func:`resolve_engine`; None: ``gather``
+    on the CPU, ``v3`` on a CUDA device).
     """
     import time
 
     from . import device as dev
 
     global _seed_note_shown
+    engine = resolve_engine(engine, device)
     if devices is not None:
         raise NotImplementedError(
             "devices= (the --data-shards chunk round-robin) is not ported "
@@ -1235,7 +1267,7 @@ def align_and_count(
                         device_data = dev.upload(chunk.codes, panel, device, {})
                     d2 = dispatch_chunk(
                         chunk, panel, index, disp.cands, align_cfg,
-                        device_data, batch_size=batch_size,
+                        device_data, batch_size=batch_size, engine=engine,
                     )
                     process_one(start, chunk, d2)
                     break
@@ -1266,7 +1298,7 @@ def align_and_count(
             return
         tf1 = time.perf_counter()
         # Pass 2: winner starts via the v3 reverse pass (one more dispatch
-        # round + one bulk fetch for all chunks).
+        # round + one bulk fetch for all chunks; nothing for one-pass rows).
         finalized = []
         for (start, chunk, disp), host_rows in zip(pending, per_chunk):
             winners, win = finalize_chunk(
@@ -1402,7 +1434,7 @@ def align_and_count(
             device_data = device_datas.pop(ci)
             disp = dispatch_chunk(
                 chunk, panel, index, cands, align_cfg, device_data,
-                batch_size=batch_size,
+                batch_size=batch_size, engine=engine,
             )
             t2 = time.perf_counter()
             pending.append((start, chunk, disp))

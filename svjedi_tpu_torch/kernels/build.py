@@ -1,10 +1,13 @@
 """Build the CUDA kernels with nvcc at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o _build/libsvjt_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu     # one per source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o _build/libsvjt_kernels_<hash>.so *.o
 
 The library name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the library in ``_build/`` (listed in
@@ -25,10 +28,8 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the last build took (0.0 when the library was already built).
@@ -65,19 +66,36 @@ def build() -> Path:
         build_seconds = 0.0
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
+    try:
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in compiles]
+        for cmd, proc in zip(compiles, procs):
+            _raise_on_failure(cmd, proc, *proc.communicate())
+        link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                *(str(o) for o in objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _raise_on_failure(link, proc, proc.stdout, proc.stderr)
+        os.replace(tmp, so)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
     return so
+
+
+def _raise_on_failure(cmd, proc, out: str, err: str) -> None:
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{out}{err}")
 
 
 def load_library() -> ctypes.CDLL:
@@ -90,6 +108,16 @@ def load_library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.band_dp_v3_fwd_launch.restype = i32
+        lib.band_dp_onepass_launch.argtypes = [
+            ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.band_dp_onepass_launch.restype = i32
+        i64 = ctypes.c_longlong
+        lib.band_dp_dma_launch.argtypes = [
+            ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.band_dp_dma_launch.restype = i32
         lib.svjt_cuda_error_string.argtypes = [i32]
         lib.svjt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -5,6 +5,8 @@ Counterpart of ``svjedi_tpu/pipeline.py`` with the same artifacts on disk
 ``<prefix>_informative_aln.json``, ``<prefix>_genotype.vcf``,
 ``<prefix>_stats.json``). The device is chosen once here: ``cuda:0`` when
 a card is visible, otherwise the CPU, and it does not change during a run.
+The DP engine follows the device unless named (``align/pipeline.py``:
+``resolve_engine``).
 """
 
 from __future__ import annotations
@@ -36,8 +38,8 @@ from svjedi_tpu.io.fasta import read_fasta
 from svjedi_tpu.io.fastq import read_reads
 from svjedi_tpu.utils.stats import RunStats
 
-from .align.pipeline import align_and_count
-from .kernels import band_dp_v3
+from .align.pipeline import align_and_count, resolve_engine
+from .kernels import band_dp_dma, band_dp_v3
 
 
 def select_device() -> torch.device:
@@ -83,8 +85,13 @@ def _not_ported(flag: str, item: str) -> NotImplementedError:
     )
 
 
-def run_pipeline(cfg: PipelineConfig, device: Optional[torch.device] = None) -> Dict:
-    """Run all stages on ``device`` (default: :func:`select_device`)."""
+def run_pipeline(
+    cfg: PipelineConfig,
+    device: Optional[torch.device] = None,
+    engine: Optional[str] = None,
+) -> Dict:
+    """Run all stages on ``device`` (default: :func:`select_device`) with
+    the DP ``engine`` (default: ``gather`` on the CPU, ``v3`` on a card)."""
     if cfg.multihost:
         raise _not_ported("--multihost", "M10")
     if cfg.dist.data_shards > 1:
@@ -92,9 +99,11 @@ def run_pipeline(cfg: PipelineConfig, device: Optional[torch.device] = None) -> 
     if cfg.dist.graph_shards > 1:
         raise _not_ported("--graph-shards > 1", "M9")
     device = device or select_device()
+    engine = resolve_engine(engine, device)
     stats = RunStats()
     prefix = cfg.prefix
     stats.set("device", str(device))
+    stats.set("engine", engine)
     if device.type == "cuda":
         stats.set("device_name", torch.cuda.get_device_name(device))
 
@@ -232,6 +241,7 @@ def run_pipeline(cfg: PipelineConfig, device: Optional[torch.device] = None) -> 
         stats.set("read_bases", int(reads.lengths.sum()))
 
     launches0 = band_dp_v3.launches
+    dma_launches0 = band_dp_dma.launches
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     profiler = contextlib.nullcontext()
@@ -243,7 +253,7 @@ def run_pipeline(cfg: PipelineConfig, device: Optional[torch.device] = None) -> 
     with profiler, stats.timer("align"):
         counts, audit, winners = align_and_count(
             reads, panel, index, cfg.align, cfg.genotype, device=device,
-            decoy=decoy,
+            decoy=decoy, engine=engine,
         )
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -252,6 +262,7 @@ def run_pipeline(cfg: PipelineConfig, device: Optional[torch.device] = None) -> 
         profiler.export_chrome_trace(str(Path(cfg.profile_dir) / "trace.json"))
     stats.set("seed_path", "host")
     stats.set("band_dp_v3_launches", band_dp_v3.launches - launches0)
+    stats.set("band_dp_dma_launches", band_dp_dma.launches - dma_launches0)
     if device.type == "cuda":
         stats.set(
             "device_max_memory_allocated",

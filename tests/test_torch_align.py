@@ -1,11 +1,14 @@
 """The port's align stage (CPU, plain DP) vs the JAX package's, on a simulated genome.
 
-The JAX CPU path scores candidates with the one-pass gather engine
-(``band_dp_batch``); the port runs the two-pass v3 engine. Scores, winners
-and counts are exact. Alignment ends and starts may differ only where
-several optimal alignments tie: the v3 forward pass keeps, among cells
-tied at the best score, the lowest band offset, while the one-pass engine
-keeps the first row. Every differing span is checked to be optimal.
+On the CPU both packages score candidates with the one-pass ``gather``
+engine (``band_dp_batch``) by default, and every output is exact, spans
+included. The port's other engines run here through their plain versions:
+``v3`` (two-pass: the forward pass keeps, among cells tied at the best
+score, the lowest band offset) and ``dma`` (the fused-fetch kernel's
+contract: per-cell first row, lowest band offset at the maximum). Against
+the JAX run their scores, winners and counts are exact; their spans may
+differ only where optimal alignments tie, and every differing span is
+checked to be optimal.
 """
 
 import inspect
@@ -78,28 +81,45 @@ def bundle(tmp_path_factory):
     }
 
 
-@pytest.fixture(scope="module")
-def runs(bundle):
+def _align(bundle, **kw):
     b = bundle
     args = (b["reads"], b["panel"], b["index"], b["cfg"], b["gcfg"])
-    jax_run = jpipe.align_and_count(*args, decoy=b["decoy"])
-    port_run = tpipe.align_and_count(*args, device=CPU, decoy=b["decoy"])
-    return jax_run, port_run
+    if "device" not in kw:
+        return jpipe.align_and_count(*args, decoy=b["decoy"])
+    return tpipe.align_and_count(*args, decoy=b["decoy"], **kw)
+
+
+@pytest.fixture(scope="module")
+def runs(bundle):
+    return _align(bundle), _align(bundle, device=CPU)
 
 
 def test_align_and_count_matches_jax(runs):
-    (jcounts, _, jw), (tcounts, _, tw) = runs
+    """The default engine on the CPU is the JAX CPU engine: all exact."""
+    (jcounts, jaudit, jw), (tcounts, taudit, tw) = runs
+    assert len(tw.read) == len(jw.read) > 50
+    for f in WINNER_FIELDS:
+        np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f), err_msg=f)
+    assert tcounts == jcounts
+    assert taudit == jaudit
+    assert sum(v[0] + v[1] for v in tcounts.values()) > 0
+
+
+@pytest.mark.parametrize("engine", ["v3", "dma"])
+def test_align_and_count_engine_matches_jax(bundle, runs, engine):
+    """Scores, winners and counts exact; spans may move among optimal ties
+    (checked optimal per block in test_chunk_spans_are_optimal and
+    test_chunk_onepass_engines_match_jax)."""
+    jcounts, _, jw = runs[0]
+    tcounts, _, tw = _align(bundle, device=CPU, engine=engine)
     assert len(tw.read) == len(jw.read) > 50
     for f in ("read", "cluster", "path", "strand", "score", "mapq"):
         np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f), err_msg=f)
     same = np.ones(len(jw.read), dtype=bool)
     for f in ("qs", "qe", "ts", "te"):
         same &= getattr(tw, f) == getattr(jw, f)
-    # Ties between optimal alignments are rare; their spans are checked
-    # in test_chunk_spans_are_optimal.
     assert same.mean() >= 0.9
     assert tcounts == jcounts
-    assert sum(v[0] + v[1] for v in tcounts.values()) > 0
 
 
 @pytest.fixture(scope="module")
@@ -116,9 +136,51 @@ def chunk(bundle):
                                  jdev.upload(reads.codes, panel))
     (jrows,) = jpipe.collect_outs([jdisp])
     tdisp = tpipe.dispatch_chunk(reads, panel, index, cands, cfg,
-                                 tdev.upload(reads.codes, panel, CPU))
+                                 tdev.upload(reads.codes, panel, CPU),
+                                 engine="v3")
     (trows,) = tpipe.collect_outs([tdisp])
     return cands, jdisp, jrows, tdisp, trows
+
+
+def _cand_rows(disp, host_rows, n):
+    """Per-candidate one-pass results [score, qs, ts, qe, te] (-1: unscored)."""
+    out = np.full((n, 5), -1, dtype=np.int64)
+    for (sel, _, kind, _), host in zip(disp.batches, host_rows):
+        assert kind == "full"
+        out[sel] = host[: len(sel)]
+    return out
+
+
+@pytest.mark.parametrize("engine", [None, "dma"])
+def test_chunk_onepass_engines_match_jax(bundle, chunk, engine):
+    """The one-pass engines give "full" batches; the default engine's rows
+    (gather on the CPU) equal the JAX CPU dispatch exactly, the dma rows
+    have equal scores and optimal spans where they differ."""
+    from _span_check import assert_spans_optimal
+
+    reads, panel, index, cfg = (bundle[k] for k in ("reads", "panel", "index", "cfg"))
+    cands, jdisp, jrows, _, _ = chunk
+    n = len(cands)
+    disp = tpipe.dispatch_chunk(reads, panel, index, cands, cfg,
+                                tdev.upload(reads.codes, panel, CPU),
+                                engine=engine)
+    (rows,) = tpipe.collect_outs([disp])
+    got = _cand_rows(disp, rows, n)
+    ref = _cand_rows(jdisp, jrows, n)
+    np.testing.assert_array_equal(disp.bucket_of_cand, jdisp.bucket_of_cand)
+    if engine != "dma":
+        np.testing.assert_array_equal(got, ref)
+        return
+    np.testing.assert_array_equal(got[:, 0], ref[:, 0])
+    diff = np.flatnonzero((got != ref).any(axis=1))
+    assert len(diff) <= 0.1 * len(np.flatnonzero(disp.bucket_of_cand > 0))
+    m = tpipe.candidate_windows(reads, index, cands, cfg)[2].astype(np.int32)
+    for bucket in np.unique(disp.bucket_of_cand[diff]):
+        cand = diff[disp.bucket_of_cand[diff] == bucket]
+        q, t = _windows(disp, cand, m[cand], int(bucket), cfg)
+        span = dict(zip(tdev.OUT_COLS, got[cand].T))
+        assert_spans_optimal(q, t, cfg.band, JaxDPParams(), span,
+                             np.arange(len(cand)))
 
 
 def _windows(disp, cand, m, bucket, cfg):
@@ -183,6 +245,15 @@ def test_chunk_spans_are_optimal(bundle, chunk):
                              np.arange(len(rows)))
     same = (tw.qs == jwin[twi, 1] + tdisp.rw_start[twi])
     assert same.mean() >= 0.9
+
+
+def test_resolve_engine_follows_the_jax_rule():
+    assert tpipe.resolve_engine(None, CPU) == "gather"
+    assert tpipe.resolve_engine(None, torch.device("cuda:0")) == "v3"
+    for engine in tpipe.ENGINES:
+        assert tpipe.resolve_engine(engine, CPU) == engine
+    with pytest.raises(ValueError, match="engine"):
+        tpipe.resolve_engine("pallas", CPU)
 
 
 @pytest.mark.parametrize("name", COPIED)

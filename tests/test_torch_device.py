@@ -145,6 +145,47 @@ def test_prep_v3_flat_matches_jax():
             np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
+@pytest.mark.parametrize("engine", ["gather", "dma"])
+def test_window_score_matches_jax(engine):
+    """``gather`` is exact against JAX's gather engine; ``dma`` against the
+    JAX fused-fetch kernel in interpret mode. Both entry points: the five
+    vectors (dict out) and the packed (5, P) meta (P, 5 out)."""
+    from svjedi_tpu.kernels.band_dp_dma import band_dp_dma_raw
+    from test_torch_band_dp_dma import layout
+
+    bucket, band, P = 128, 128, 16
+    jd, td, vecs = layout(9, P, bucket, band)
+    q_start, t_start, m, t_lo, t_hi = vecs
+    meta = np.stack([q_start, m, t_start, t_lo, t_hi])
+    assert tdev.META_ROWS == jdev.META_ROWS and tdev.OUT_COLS == jdev.OUT_COLS
+    if engine == "gather":
+        ref = np.asarray(jdev.window_score_packed(
+            jd.reads2, jd.panel_padded, jnp.asarray(meta), bucket=bucket,
+            band=band, params=JaxDPParams(), engine="gather"))
+    else:
+        ref = np.asarray(band_dp_dma_raw(
+            jd.reads2, jd.panel_padded, *vecs, bucket=bucket, band=band,
+            params=JaxDPParams(), interpret=True))[:, :5]
+    packed = tdev.window_score_packed(td.reads2, td.panel_padded,
+                                      torch.from_numpy(meta), bucket, band,
+                                      DPParams(), engine)
+    assert packed.shape == (P, 5) and packed.dtype == torch.int32
+    np.testing.assert_array_equal(packed.numpy(), ref)
+    T = (torch.from_numpy(v) for v in (q_start, m, t_start, t_lo, t_hi))
+    res = tdev.window_score(td.reads2, td.panel_padded, *T, bucket=bucket,
+                            band=band, params=DPParams(), engine=engine)
+    for c, key in enumerate(tdev.OUT_COLS):
+        np.testing.assert_array_equal(res[key].numpy(), ref[:, c], err_msg=key)
+
+
+def test_window_score_rejects_unknown_engine():
+    z = torch.zeros(8, dtype=torch.int32)
+    buf = torch.full((2048,), 4, dtype=torch.int8)
+    with pytest.raises(ValueError, match="engine"):
+        tdev.window_score(buf, buf, z, z, z, z, z, bucket=128, band=128,
+                          params=DPParams(), engine="v3")
+
+
 def test_band_dp_stats_batch_matches_jax():
     """The audit DP (band 256, as compute_winner_stats runs it)."""
     rng = np.random.default_rng(8)

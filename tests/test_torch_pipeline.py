@@ -1,8 +1,9 @@
 """``python -m svjedi_tpu_torch`` end to end vs ``python -m svjedi_tpu`` (CPU).
 
-The genotype VCFs of the two packages must be byte-identical on a simulated
-bundle; the port's shard + merge mode must reproduce its single run; and
-the port must import and run with JAX absent.
+On the CPU both packages score with the one-pass ``gather`` engine, so the
+GAF, the audit table and the genotype VCF must be byte-identical on a
+simulated bundle; the port's shard + merge mode must reproduce its single
+run; and the port must import and run with JAX absent.
 """
 
 import json
@@ -47,7 +48,7 @@ def bundle(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def single_runs(bundle):
-    """One run of each CLI, side by side in two processes."""
+    """One run of each CLI with ``--gaf``, side by side in two processes."""
     tmp, paths = bundle
     base = ["run", "-v", str(paths["vcf"]), "-r", str(paths["ref"]),
             "-q", str(paths["reads"])]
@@ -55,11 +56,11 @@ def single_runs(bundle):
                OMP_NUM_THREADS="1")
     procs = {
         pkg: subprocess.Popen(
-            [sys.executable, "-m", pkg, *base, "-p", str(tmp / pkg), *extra],
+            [sys.executable, "-m", pkg, *base, "-p", str(tmp / pkg), "--gaf"],
             cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True,
         )
-        for pkg, extra in (("svjedi_tpu", []), ("svjedi_tpu_torch", ["--gaf"]))
+        for pkg in ("svjedi_tpu", "svjedi_tpu_torch")
     }
     for pkg, proc in procs.items():
         out, err = proc.communicate(timeout=600)
@@ -76,8 +77,19 @@ def test_cli_run_matches_jax_vcf(single_runs):
     stats = json.loads((tmp / "svjedi_tpu_torch_stats.json").read_text())
     assert stats["counters"]["seed_path"] == "host"
     assert stats["counters"]["device"] == "cpu"
-    assert stats["counters"]["band_dp_v3_launches"] == 0  # CPU: plain version
-    assert (tmp / "svjedi_tpu_torch.gaf").stat().st_size > 0
+    assert stats["counters"]["engine"] == "gather"  # the JAX CPU engine
+    assert stats["counters"]["band_dp_v3_launches"] == 0
+    assert stats["counters"]["band_dp_dma_launches"] == 0
+
+
+@pytest.mark.parametrize("suffix", [".gaf", "_informative_aln.json"])
+def test_cli_run_matches_jax_alignments(single_runs, suffix):
+    """Winners' spans, hence the GAF and the audit table, equal the JAX
+    package's byte for byte."""
+    ours = (single_runs / f"svjedi_tpu_torch{suffix}").read_bytes()
+    theirs = (single_runs / f"svjedi_tpu{suffix}").read_bytes()
+    assert len(ours) > 0
+    assert ours == theirs
 
 
 def test_shard_merge_and_resume_match_single_run(bundle, single_runs):
@@ -125,6 +137,9 @@ q = torch.from_numpy(rng.integers(0, 4, (64, 128)).astype(np.int8))
 t = torch.cat([q, torch.full((128, 128), 4, dtype=torch.int8)])
 out = band_dp_v3_fwd(q, t, 64, 128)
 assert out.shape == (128, 3) and bool((out[:, 0] == 128).all()), out[:4]
+from svjedi_tpu_torch.kernels.band_dp import band_dp_onepass
+one = band_dp_onepass(q.T.contiguous(), t.T.contiguous(), 128)
+assert bool((one["score"] == 128).all()), one["score"][:4]
 assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
                if sys.modules[m] is not None)
 print("ok")
