@@ -5,39 +5,49 @@
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 
-1. Device: a CUDA device must be visible; prints its name and the
-   ``nvidia-smi`` name and power limit, then builds the CUDA kernels
-   (``svjedi_tpu_torch/kernels/csrc``) and the native host library.
-2. Kernel vs plain: the band_dp_v3 kernel against its plain PyTorch version
-   on the same CUDA tensors, exactly, at every bucket of
-   ``AlignConfig.buckets`` (P = 256), at a production-shaped batch
-   (P = 32768, bucket 2048), with and without row bounds, with
-   ``n_valid < P`` and on edge cases; the reverse pass and the two-pass
-   wrapper likewise. Times the kernel and the plain version at
-   P = 32768, bucket 2048.
+1. Device: a CUDA device must be visible; prints its name, the
+   ``nvidia-smi`` name and power limit, and the int32 peak (SMs x 64 lanes x
+   the max SM clock) that the kernels' bounds use. Builds the port's native
+   host library (``svjedi_tpu_torch/native/fastio.cpp``) and the CUDA
+   kernels (``svjedi_tpu_torch/kernels/csrc``), prints ptxas's registers and
+   spills for each build of the v3 kernel (or that the library was cached)
+   and the DPX instructions in its SASS; fails if any build has no DPX
+   add-max (VIADDMNMX).
+2. Kernel vs plain: the band_dp_v3 kernel (K1) against its plain PyTorch
+   version on the same CUDA tensors, exactly, at every bucket of
+   ``AlignConfig.buckets`` with band 128 and at bucket 2048 with band 256
+   (P = 256), at a production-shaped batch (P = 32768, bucket 2048), with
+   and without row bounds, with ``n_valid < P`` and on edge cases; the
+   reverse pass and the two-pass wrapper likewise; the kernel's wide build
+   (scores that match x bucket or int8 cannot hold) at bucket 30720 and at
+   band 256. At P = 32768, bucket 2048 times the kernel, the plain version
+   and the reverse pass, with Gcell/s, the bound and the share of the
+   bound.
 2b. One-pass kernels vs plain, exactly, at every bucket with band 128 and
    at bucket 2048 with band 256 (P = 256): the pre-gathered entry
    (``band_dp_onepass``, the same edge cases) and the fused-fetch entry
    (``band_dp_dma_raw``) on real upload buffers (forward and reverse-strand
    windows, windows crossing the path bounds, m < bucket, padding rows with
    m = 0); both at P = 32768, bucket 2048, timed against their plain
-   versions.
+   versions and their bounds.
 2c. Pre-gathered path: the windows of phase 2b's production batch fetched
    on the card (``gather_windows``) and scored by ``band_dp_onepass``; the
    result must equal the fused-fetch kernel's on the same problems.
 3. Main path: simulates the 10 Mb / 1,000 SV / 20x configuration
    (``bench.py``'s scale config seeds) and runs
-   ``python -m svjedi_tpu_torch run`` on it as a subprocess (the v3
-   engine, with ``--gaf``). It must exit 0, genotype at accuracy 100.0,
-   launch the kernel, and print none of the aligner's fault warnings.
+   ``python -m svjedi_tpu_torch run`` on it as a subprocess (the card, the
+   v3 engine, with ``--gaf``). It must exit 0, genotype at accuracy 100.0,
+   launch the kernel, load the port's own native library, and print none
+   of the aligner's fault warnings.
 4. One-pass path: ``run_pipeline(..., engine="dma")`` in this process on
    phase 3's files, gated like phase 3, with band_dp_dma launches > 0 and
    band_dp_v3 launches == 0; prints its align stage, reads/s, peak device
    memory, the VCF records that differ from phase 3's, and per winner field
    (GAF spans, score, mapq) how many winners the two engines disagree on.
 
-The second-to-last line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+Everything runs through ``svjedi_tpu_torch``; nothing of JAX or of the JAX
+package is imported. The second-to-last line is the kernels' JSON record;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -75,6 +85,19 @@ def fail(msg: str) -> None:
 
 # ---- phase 1 ----------------------------------------------------------------
 
+#: H100 SXM memory rate (NVIDIA's data sheet), for the bytes side of a bound.
+HBM_BYTES_PER_S = 3.35e12
+#: int32 lanes per SM per clock on Hopper (4 partitions x 16).
+INT32_LANES_PER_SM = 64
+#: int32 operations per band cell as Hopper issues them. K1 (the v3
+#: forward pass): add + viaddmax (V), prmt (substitution), viaddmax_relu
+#: (H before the gap), viaddmax (lane-local F scan), viaddmax x2 (F
+#: closure), imad + max (the packed best-cell key). The one-pass kernels (K3, K4)
+#: add five selects that carry the start: vertical source, diagonal vs
+#: vertical, reset at 0, horizontal source, best start.
+OPS_PER_CELL = {"k1": 9, "onepass": 14}
+DPX_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX")
+
 
 def phase_device():
     import torch
@@ -90,24 +113,77 @@ def phase_device():
     )
     smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
     log(smi_line)  # the card's name and power limit, as nvidia-smi prints them
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    try:
+        max_sm_hz = float(clk.stdout.strip().splitlines()[0]) * 1e6
+    except (ValueError, IndexError):
+        fail(f"nvidia-smi gave no max SM clock: {clk.stdout!r} {clk.stderr!r}")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    peak_ops = n_sm * INT32_LANES_PER_SM * max_sm_hz
+    log(f"[device] {n_sm} SMs, max SM clock {max_sm_hz / 1e6:.0f} MHz: int32 "
+        f"peak {peak_ops / 1e12:.2f} Top/s; memory {HBM_BYTES_PER_S / 1e12} TB/s")
 
     from svjedi_tpu_torch.kernels import build
 
+    t0 = time.perf_counter()
+    so = build.build_native()
+    log(f"[build] native host library: {time.perf_counter() - t0:.2f} s -> "
+        f"{so.relative_to(ROOT)}")
     t0 = time.perf_counter()
     build.load_library()
     log(f"[build] CUDA kernels: {time.perf_counter() - t0:.2f} s "
         f"(nvcc {build.build_seconds:.2f} s) -> "
         f"{build.library_path().relative_to(ROOT)}")
-    so = ROOT / "native" / "libsvtfastio.so"
-    t0 = time.perf_counter()
-    if not so.exists():
-        proc = subprocess.run(
-            ["make", "-C", str(ROOT / "native")], capture_output=True,
-            text=True, timeout=600,
-        )
-        if proc.returncode != 0 or not so.exists():
-            fail(f"native library build failed:\n{proc.stdout}{proc.stderr}")
-    log(f"[build] native host library: {time.perf_counter() - t0:.2f} s")
+    if build.build_seconds == 0.0:
+        log("[build] ptxas report unavailable: the kernels' library was "
+            "cached, not rebuilt")
+    for line in build.ptxas_report.get("band_dp_v3.cu", "").splitlines():
+        if "registers" in line or "spill" in line or "entry function" in line:
+            log(f"[build] ptxas band_dp_v3.cu: {line.strip()}")
+    found = dpx_in_sass(build.library_path(), "band_dp_v3_fwd_kernel")
+    for fn, ops in found.items():
+        log(f"[build] SASS of {fn}: "
+            + ", ".join(f"{op} {n}" for op, n in ops.items()))
+    if len(found) != 4:
+        fail(f"expected 4 builds of band_dp_v3_fwd_kernel in the SASS, "
+             f"found {len(found)}")
+    emulated = [fn for fn, ops in found.items() if not ops["VIADDMNMX"]]
+    if emulated:
+        fail(f"no DPX add-max (VIADDMNMX) in {emulated}: emulated")
+    log("[build] DPX add-max (VIADDMNMX) found in every build of "
+        "band_dp_v3_fwd_kernel")
+    return peak_ops
+
+
+def dpx_in_sass(lib: Path, kernel: str) -> dict:
+    """Per instance of ``kernel`` in the library's SASS, the count of each
+    DPX opcode (cuobjdump -sass)."""
+    cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                     "bin", "cuobjdump")
+    if not cuobjdump.exists():
+        fail(f"{cuobjdump} not found: cannot check the SASS for DPX")
+    proc = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass exited {proc.returncode}: {proc.stderr[-500:]}")
+    found, fn = {}, None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if kernel in m.group(1) else None
+            if fn:
+                found[fn] = dict.fromkeys(DPX_OPCODES, 0)
+            continue
+        if fn:
+            m = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                          line)
+            if m and m.group(1) in found[fn]:
+                found[fn][m.group(1)] += 1
+    return found
 
 
 # ---- phase 2 ----------------------------------------------------------------
@@ -155,11 +231,19 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_kernel():
+def bound_ms(cells: float, ops_per_cell: int, n_bytes: float, peak_ops: float):
+    """The least time for the work: the larger of operations over the int32
+    peak and bytes over the memory rate; and which of the two it is."""
+    ops_ms = cells * ops_per_cell / peak_ops * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def phase_kernel(peak_ops: float):
     import torch
 
-    from svjedi_tpu.config import AlignConfig
     from svjedi_tpu_torch.align.extend import DPParams
+    from svjedi_tpu_torch.config import AlignConfig
     from svjedi_tpu_torch.kernels import band_dp_v3 as v3
 
     dev = torch.device("cuda:0")
@@ -177,36 +261,59 @@ def phase_kernel():
             fail(f"kernel disagrees with the plain version: {what} "
                  f"(max abs err {err})")
 
-    def fwd_case(tag, qT, tT, bucket, n_valid):
-        got = v3.band_dp_v3_fwd(qT, tT, bucket, BAND, params, n_valid)
-        ref = v3.band_dp_v3_fwd_ref(qT, tT, bucket, BAND, params, n_valid)
+    def fwd_case(tag, qT, tT, bucket, n_valid, band=BAND, p=params):
+        got = v3.band_dp_v3_fwd(qT, tT, bucket, band, p, n_valid)
+        ref = v3.band_dp_v3_fwd_ref(qT, tT, bucket, band, p, n_valid)
         compare(f"fwd {tag}", got, ref)
         return got
 
-    buckets = list(AlignConfig().buckets)
-    for bucket in buckets:
+    # Every bucket at band 128 (the pipeline's), and bucket 2048 at band
+    # 256, the kernel's other build.
+    cases = [(bucket, BAND) for bucket in AlignConfig().buckets]
+    cases.append((2048, 256))
+    for bucket, band in cases:
         P = 256
-        qT, tT, m = make_problems(bucket, P, bucket, sort_m=True)
+        qT, tT, m = make_problems(bucket, P, bucket, sort_m=True, band=band)
         qT, tT = torch.from_numpy(qT).to(dev), torch.from_numpy(tT).to(dev)
         bounds = m.reshape(-1, 128).max(axis=1)
         t0 = time.perf_counter()
-        fwd_case(f"bucket={bucket} unbounded", qT, tT, bucket, None)
+        tag = f"bucket={bucket} band={band}"
+        fwd_case(f"{tag} unbounded", qT, tT, bucket, None, band)
         nvb = torch.tensor(np.concatenate([[P - 37], bounds]),
                            dtype=torch.int32, device=dev)
-        fwd_case(f"bucket={bucket} bounds n_valid={P - 37}", qT, tT, bucket, nvb)
-        got = v3.band_dp_v3(qT, tT, bucket, BAND, params)
-        ref = v3.band_dp_v3(qT, tT, bucket, BAND, params,
+        fwd_case(f"{tag} bounds n_valid={P - 37}", qT, tT, bucket, nvb, band)
+        got = v3.band_dp_v3(qT, tT, bucket, band, params)
+        ref = v3.band_dp_v3(qT, tT, bucket, band, params,
                             fwd=v3.band_dp_v3_fwd_ref)
         for key in got:
-            compare(f"two-pass {key} bucket={bucket}", got[key], ref[key])
-        compare(f"score_rev == score bucket={bucket}", got["score_rev"],
-                got["score"])
-        rev = v3.band_dp_v3_rev(qT, tT, bucket, BAND, params, n_valid=200)
-        rev_ref = v3.band_dp_v3_rev(qT, tT, bucket, BAND, params, n_valid=200,
+            compare(f"two-pass {key} {tag}", got[key], ref[key])
+        compare(f"score_rev == score {tag}", got["score_rev"], got["score"])
+        rev = v3.band_dp_v3_rev(qT, tT, bucket, band, params, n_valid=200)
+        rev_ref = v3.band_dp_v3_rev(qT, tT, bucket, band, params, n_valid=200,
                                     fwd=v3.band_dp_v3_fwd_ref)
-        compare(f"rev bucket={bucket}", rev[:200], rev_ref[:200])
-        log(f"[kernel] bucket {bucket:5d} P {P}: fwd, bounded fwd, rev, "
-            f"two-pass exact ({time.perf_counter() - t0:.1f} s)")
+        compare(f"rev {tag}", rev[:200], rev_ref[:200])
+        log(f"[kernel] bucket {bucket:5d} band {band} P {P}: fwd, bounded "
+            f"fwd, rev, two-pass exact ({time.perf_counter() - t0:.1f} s)")
+
+    # The wide build: match x bucket >= 2^16 (match 3 at bucket 30720), and
+    # a mismatch outside int8 at band 256.
+    for bucket, band, wide in ((30720, BAND, DPParams(match=3)),
+                               (2048, 256, DPParams(mismatch=-200))):
+        P = 256
+        qT, tT, m = make_problems(bucket + 3, P, bucket, sort_m=True,
+                                  band=band)
+        qT, tT = torch.from_numpy(qT).to(dev), torch.from_numpy(tT).to(dev)
+        nvb = torch.tensor(np.concatenate([[P - 37],
+                                           m.reshape(-1, 128).max(axis=1)]),
+                           dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        tag = (f"wide match={wide.match} mismatch={wide.mismatch} "
+               f"bucket={bucket} band={band}")
+        fwd_case(f"{tag} unbounded", qT, tT, bucket, None, band, wide)
+        fwd_case(f"{tag} bounds", qT, tT, bucket, nvb, band, wide)
+        log(f"[kernel] wide build, match {wide.match} mismatch "
+            f"{wide.mismatch}, bucket {bucket:5d} band {band} P {P}: fwd, "
+            f"bounded fwd exact ({time.perf_counter() - t0:.1f} s)")
 
     # Production-shaped batch: P = 32768 at bucket 2048, m-sorted windows.
     P, bucket = 32768, 2048
@@ -218,24 +325,59 @@ def phase_kernel():
     fwd_case("P=32768 bucket=2048 unbounded", qT, tT, bucket, None)
     fwd_case("P=32768 bucket=2048 bounds", qT, tT, bucket, nvb)
     got = v3.band_dp_v3(qT, tT, bucket, BAND, params)
-    ref = v3.band_dp_v3(qT, tT, bucket, BAND, params, fwd=v3.band_dp_v3_fwd_ref)
+    ref2 = v3.band_dp_v3(qT, tT, bucket, BAND, params,
+                         fwd=v3.band_dp_v3_fwd_ref)
     for key in got:
-        compare(f"two-pass {key} P=32768", got[key], ref[key])
+        compare(f"two-pass {key} P=32768", got[key], ref2[key])
     log(f"[kernel] P 32768 bucket 2048: fwd, bounded fwd, two-pass exact; "
         f"{n_cases} comparisons, max abs err {max_err}")
 
+    # Times at the production shape.
     ms = cuda_time_ms(
-        lambda: v3.band_dp_v3_fwd(qT, tT, bucket, BAND, params, nvb), reps=10
+        lambda: v3.band_dp_v3_fwd(qT, tT, bucket, BAND, params, nvb), reps=20
     )
     plain_ms = cuda_time_ms(
         lambda: v3.band_dp_v3_fwd_ref(qT, tT, bucket, BAND, params, nvb),
         reps=2,
     )
-    cells = float(bounds.clip(max=bucket).sum()) * 128 * BAND
+    n = P - 100
+    rows = np.repeat(np.minimum((bounds + 7) // 8 * 8, bucket), 128)[:n]
+    need = np.minimum(m[:n], rows)
+    cells = float(need.sum()) * BAND
+    n_bytes = float(need.sum() + (need + BAND).sum()) + 4 * (1 + len(bounds)) \
+        + 12 * P
+    bms, bound_by = bound_ms(cells, OPS_PER_CELL["k1"], n_bytes, peak_ops)
+    run_cells = float(rows.sum()) * BAND
     log(f"[kernel] band_dp_v3_fwd P 32768 bucket 2048 (row bounds): kernel "
-        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, {cells / ms / 1e6:.2f} "
-        f"Gcell/s kernel")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+        f"{ms:.3f} ms ({run_cells / ms / 1e6:.2f} Gcell/s of rows run, "
+        f"{cells / ms / 1e6:.2f} Gcell/s of rows needed), plain "
+        f"{plain_ms:.3f} ms; bound {bms:.3f} ms by "
+        f"{bound_by} ({cells / 1e9:.3f} Gcell x {OPS_PER_CELL['k1']} ops), "
+        f"{100 * bms / ms:.1f}% of bound")
+
+    # K1': the reverse pass as the pipeline runs it (flip + roll, then the
+    # kernel on all rows: the flipped windows put their valid rows last) on
+    # the batch's end-clamped windows, which need qe + 1 rows each.
+    qe, te = got["qe"], got["te"]
+    qT2 = torch.where(torch.arange(bucket, device=dev)[:, None] <= qe[None],
+                      qT, 4).to(torch.int8)
+    tT2 = torch.where(
+        torch.arange(bucket + BAND, device=dev)[:, None] <= te[None], tT, 4
+    ).to(torch.int8)
+    rev_ms = cuda_time_ms(
+        lambda: v3.band_dp_v3_rev(qT2, tT2, bucket, BAND, params), reps=10)
+    rev_need = (qe.cpu().numpy().astype(np.int64) + 1).clip(min=0)
+    rev_cells = float(rev_need.sum()) * BAND
+    rev_bytes = float(rev_need.sum() + (rev_need + BAND).sum()) + 12 * P
+    rev_bms, rev_by = bound_ms(rev_cells, OPS_PER_CELL["k1"], rev_bytes,
+                               peak_ops)
+    log(f"[kernel] band_dp_v3_rev P 32768 bucket 2048 (flip + roll + kernel, "
+        f"all rows): {rev_ms:.3f} ms ({P * bucket * BAND / rev_ms / 1e6:.2f} "
+        f"Gcell/s of rows run); bound {rev_bms:.3f} ms by {rev_by} "
+        f"({rev_cells / 1e9:.3f} Gcell x {OPS_PER_CELL['k1']} ops), "
+        f"{100 * rev_bms / rev_ms:.1f}% of bound")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": bound_by}
 
 
 # ---- phase 3 ----------------------------------------------------------------
@@ -243,8 +385,8 @@ def phase_kernel():
 
 def simulate_bundle(out: Path, mb: int, n_svs: int, cov: float):
     """The scale configuration of bench.py: seeds 2 (genome) and 11 (reads)."""
-    from svjedi_tpu.io import sim
-    from svjedi_tpu.io.fasta import write_fasta
+    from svjedi_tpu_torch.io import sim
+    from svjedi_tpu_torch.io.fasta import write_fasta
 
     t0 = time.perf_counter()
     s = sim.simulate(
@@ -265,8 +407,20 @@ def simulate_bundle(out: Path, mb: int, n_svs: int, cov: float):
     return paths, n_reads
 
 
+def check_native(counters, what: str) -> None:
+    """The run's host library (the file its loader opened) must be the
+    port's own build."""
+    from svjedi_tpu_torch.kernels import build
+
+    loaded = counters.get("native_lib")
+    if loaded is None or os.path.realpath(loaded) != os.path.realpath(
+            build.NATIVE_LIB):
+        fail(f"{what} loaded native library {counters.get('native_lib')!r}, "
+             f"not the port's build {build.NATIVE_LIB}")
+
+
 def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
-    from svjedi_tpu.evals.contingency import contingency_report
+    from svjedi_tpu_torch.evals.contingency import contingency_report
     from svjedi_tpu_torch.kernels import band_dp_v3
 
     prefix = out / "run"
@@ -296,6 +450,7 @@ def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
     launches = int(counters.get("band_dp_v3_launches", 0))
     if launches <= 0:
         fail("the main path launched the band_dp_v3 kernel no time")
+    check_native(counters, "the main path")
     report = contingency_report(paths["vcf"], f"{prefix}_genotype.vcf")
     acc = re.search(r"accuracy: ([\d.]+)", report)
     log("[main] " + " | ".join(report.strip().splitlines()))
@@ -307,7 +462,8 @@ def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
         + ", ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
     log(f"[main] device {counters.get('device_name')}; "
         f"max_memory_allocated {counters.get('device_max_memory_allocated')} "
-        f"bytes; band_dp_v3 launches {launches}; seed path "
+        f"bytes; band_dp_v3 launches {launches} (reverse pass "
+        f"{counters.get('band_dp_v3_rev_launches')}); seed path "
         f"{counters.get('seed_path')}; audit re-score warnings {n_audit_warn}; "
         f"n_audit_rescore_below {counters.get('n_audit_rescore_below')}")
     return launches, prefix
@@ -360,12 +516,12 @@ def make_dma_problems(seed: int, P: int, bucket: int, dev, band: int = BAND):
     return data, vecs
 
 
-def phase_onepass_kernels():
+def phase_onepass_kernels(peak_ops: float):
     """K4 (pre-gathered) and K3 (fused fetch) against their plain versions."""
     import torch
 
-    from svjedi_tpu.config import AlignConfig
     from svjedi_tpu_torch.align.extend import DPParams
+    from svjedi_tpu_torch.config import AlignConfig
     from svjedi_tpu_torch.kernels import band_dp as k4
     from svjedi_tpu_torch.kernels import band_dp_dma as k3
 
@@ -415,7 +571,7 @@ def phase_onepass_kernels():
             f"and band_dp_dma exact ({time.perf_counter() - t0:.1f} s)")
 
     P, bucket = 32768, 2048
-    qT, tT, _ = make_problems(7, P, bucket, sort_m=True)
+    qT, tT, k4_m = make_problems(7, P, bucket, sort_m=True)
     q = torch.from_numpy(qT.T.copy()).to(dev)
     t = torch.from_numpy(tT.T.copy()).to(dev)
     k4_case("P=32768 bucket=2048", q, t)
@@ -438,9 +594,23 @@ def phase_onepass_kernels():
         ms = cuda_time_ms(kern, reps=10)
         plain_ms = cuda_time_ms(plain, reps=1)
         times[name] = (ms, plain_ms)
+    # Bounds: the rows each problem needs (K3's m; K4's windows are
+    # sentinel beyond their m), each input byte once, 32 bytes out each.
+    k3_m = np.minimum(vecs[2].cpu().numpy().astype(np.int64), bucket)
+    need = {"k4": np.minimum(k4_m, bucket), "k3": k3_m}
+    bounds = {}
+    for name in ("k4", "k3"):
+        ms, plain_ms = times[name]
+        cells = float(need[name].sum()) * BAND
+        n_bytes = float(need[name].sum() + (need[name] + BAND).sum()) \
+            + 32 * P + (20 * P if name == "k3" else 0)
+        bms, by = bound_ms(cells, OPS_PER_CELL["onepass"], n_bytes, peak_ops)
+        bounds[name] = (bms, by)
         log(f"[onepass] {name.upper()} P 32768 bucket 2048: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms")
-    return err, times, (data, vecs, dma_out, bucket)
+            f"plain {plain_ms:.3f} ms; bound {bms:.3f} ms by {by} "
+            f"({cells / 1e9:.3f} Gcell x {OPS_PER_CELL['onepass']} ops), "
+            f"{100 * bms / ms:.1f}% of bound")
+    return err, times, bounds, (data, vecs, dma_out, bucket)
 
 
 # ---- phase 4 ------------------------------------------------------------------
@@ -489,8 +659,8 @@ def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path):
 
     import torch
 
-    from svjedi_tpu.config import PipelineConfig
-    from svjedi_tpu.evals.contingency import contingency_report
+    from svjedi_tpu_torch.config import PipelineConfig
+    from svjedi_tpu_torch.evals.contingency import contingency_report
     from svjedi_tpu_torch.kernels import band_dp_dma, band_dp_v3
     from svjedi_tpu_torch.pipeline import run_pipeline
 
@@ -521,6 +691,7 @@ def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path):
     counters, timings = stats["counters"], stats["timings_s"]
     if counters.get("engine") != "dma":
         fail(f"the one-pass run recorded engine {counters.get('engine')!r}")
+    check_native(counters, "the one-pass path")
     vcf = Path(f"{prefix}_genotype.vcf")
     report = contingency_report(paths["vcf"], str(vcf))
     acc = re.search(r"accuracy: ([\d.]+)", report)
@@ -586,9 +757,10 @@ def main() -> int:
     except ImportError as exc:
         fail(f"cannot import the port ({exc}); run from the repository root")
 
-    phase_device()
-    kern = phase_kernel()
-    onepass_err, onepass_ms, prod = phase_onepass_kernels()
+    peak_ops = phase_device()
+    kern = phase_kernel(peak_ops)
+    onepass_err, onepass_ms, onepass_bound, prod = phase_onepass_kernels(
+        peak_ops)
     k4_launches = phase_pregathered_path(*prod)
     del prod  # phase 4 reads the card's peak memory: free phase 2b's buffers
 
@@ -610,6 +782,9 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
+        "library_ms": None,
     }, {
         "name": "band_dp_dma",
         "route": "cuda",
@@ -619,6 +794,9 @@ def main() -> int:
         "max_abs_err": onepass_err["k3"],
         "ms": onepass_ms["k3"][0],
         "plain_ms": onepass_ms["k3"][1],
+        "bound_ms": onepass_bound["k3"][0],
+        "bound_by": onepass_bound["k3"][1],
+        "library_ms": None,
     }, {
         "name": "band_dp_onepass",
         "route": "cuda",
@@ -628,6 +806,9 @@ def main() -> int:
         "max_abs_err": onepass_err["k4"],
         "ms": onepass_ms["k4"][0],
         "plain_ms": onepass_ms["k4"][1],
+        "bound_ms": onepass_bound["k4"][0],
+        "bound_by": onepass_bound["k4"][1],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

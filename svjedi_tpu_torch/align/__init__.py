@@ -1,1 +1,1 @@
-"""Read-to-graph aligner, device half on PyTorch (seeding is shared with svjedi_tpu)."""
+"""Read-to-graph aligner on PyTorch: host seeding (copied from svjedi_tpu.align) and the device DP."""

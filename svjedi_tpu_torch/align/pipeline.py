@@ -6,8 +6,9 @@ PyTorch counterpart of ``svjedi_tpu/align/pipeline.py`` on one
 ``gather`` on the CPU (the one-pass ``band_dp_batch``), ``v3`` on a CUDA
 device (the two-pass v3 kernel: forward pass on every candidate, reverse pass
 on the winners), or ``dma`` when named (the one-pass fused-fetch kernel).
-Seeding, chaining and the decoy competition are the JAX package's shared
-host code; the minimizer scan runs on the host.
+Seeding, chaining and the decoy competition run on the host, in this
+package's copies of the JAX package's host modules; the minimizer scan runs
+on the host.
 
 The numpy-only helpers are verbatim copies of the JAX module's (that module
 imports JAX, so they cannot be imported from it); each names its source and
@@ -24,13 +25,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from svjedi_tpu.align.index import PanelIndex
-from svjedi_tpu.align.seed import Candidates, ChainParams, seed_candidates
-from svjedi_tpu.config import AlignConfig, GenotypeConfig
-from svjedi_tpu.graph.cluster import Panel
-from svjedi_tpu.io.fastq import ReadSet
-
+from ..config import AlignConfig, GenotypeConfig
+from ..graph.cluster import Panel
+from ..io.fastq import ReadSet
 from .extend import DPParams
+from .index import PanelIndex
+from .seed import Candidates, ChainParams, seed_candidates
 
 # Copied verbatim from svjedi_tpu/align/pipeline.py:Winners.
 @dataclass
@@ -1062,9 +1062,9 @@ def compute_winner_stats(
         )
 
 
-# Copied from svjedi_tpu/align/pipeline.py:_audit_line; only its import is absolute.
+# Copied verbatim from svjedi_tpu/align/pipeline.py:_audit_line.
 def _audit_line(panel: Panel, w: Winners, reads: ReadSet, i: int) -> str:
-    from svjedi_tpu.graph.build import REV
+    from ..graph.build import REV
 
     path = panel.paths[int(w.path[i])]
     graph = panel.graph
@@ -1194,7 +1194,7 @@ def align_and_count(
     audit: Dict[str, List[List[str]]] = {}
     winner_parts: List[Winners] = []
     panel_cache: Dict = {}
-    from svjedi_tpu.config import resolve_min_count_density
+    from ..config import resolve_min_count_density
 
     _min_density = resolve_min_count_density(genotype_cfg, align_cfg)
 
@@ -1206,7 +1206,7 @@ def align_and_count(
     seed_index = index
     sharded_decoy = isinstance(decoy, (list, tuple))
     if decoy is not None and not sharded_decoy:
-        from svjedi_tpu.align.index import merge_indexes
+        from .index import merge_indexes
 
         seed_index = merge_indexes(index, decoy.index)
 
@@ -1352,7 +1352,7 @@ def align_and_count(
         )
         if decoy is not None and len(cands):
             if sharded_decoy:
-                from svjedi_tpu.dist.decoy_shard import (
+                from ..dist.decoy_shard import (
                     suppress_candidates_sharded,
                 )
 
@@ -1361,7 +1361,7 @@ def align_and_count(
                     threads=align_cfg.threads,
                 )
             else:
-                from svjedi_tpu.align.decoy import suppress_candidates
+                from .decoy import suppress_candidates
 
                 is_panel = cands.path < n_panel_paths
                 dec = cands.take(~is_panel, path_offset=-n_panel_paths)

@@ -28,6 +28,8 @@ P_STEP = 128
 #: Kernel launches since import (or since a caller reset it to 0). Counted
 #: only where the CUDA kernel is launched, never by the plain version.
 launches = 0
+#: Of those, the launches made by the reverse pass (K1').
+rev_launches = 0
 
 
 def _check_shapes(qT: torch.Tensor, tT: torch.Tensor, bucket: int, band: int):
@@ -134,6 +136,7 @@ def band_dp_v3_fwd_ref(
 
 
 def _launch(qT, tT, prefetch, bucket: int, band: int, params: DPParams):
+    """Launch the kernel (the launcher picks its build from the params)."""
     from . import build
 
     global launches
@@ -196,12 +199,15 @@ def band_dp_v3_rev(
     score, so the flipped problem's best END is the original's best START.
     ``fwd`` selects the forward implementation (the plain one for checks).
     """
+    global rev_launches
     TW = bucket + band
     qT_r = torch.flip(qT, dims=(0,)).contiguous()
     # One extra row of flip-shift keeps the band offset k'' = B-1-k inside
     # [0, band); the wrapped row is never read (i''+k'' <= TW-2).
     tT_r = torch.roll(torch.flip(tT, dims=(0,)), -1, dims=0).contiguous()
+    before = launches
     out = fwd(qT_r, tT_r, bucket, band, params, n_valid)
+    rev_launches += launches - before
     score = out[:, 0]
     qs = (bucket - 1) - out[:, 1]
     ts = (TW - 2) - out[:, 2]

@@ -1,11 +1,11 @@
-"""Build the CUDA kernels with nvcc at first use and load them with ctypes.
+"""Build the CUDA kernels and the native host library at first use.
 
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
 together, and the objects are linked into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds):
+interface (no PyTorch headers, so a build takes seconds), loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
-         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu     # one per source
+         -Xcompiler -fPIC -Xptxas -v -c -o <name>.o csrc/<name>.cu
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \
          -o _build/libsvjt_kernels_<hash>.so *.o
 
@@ -13,6 +13,12 @@ The library name carries a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree reuses the library in ``_build/`` (listed in
 ``.gitignore``). A missing ``nvcc`` or a failed build raises with nvcc's
 output; there is no fallback.
+
+:func:`build_native` compiles the port's copy of the host I/O and chaining
+library (``svjedi_tpu_torch/native/fastio.cpp``) with the flags of the JAX
+package's ``native/Makefile`` into ``_build/libsvtfastio.so``, where
+``utils/native.py:load_native`` finds it. Without it the host code takes its
+numpy path.
 """
 
 from __future__ import annotations
@@ -29,11 +35,18 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+NATIVE_SRC = Path(__file__).resolve().parent.parent / "native" / "fastio.cpp"
+NATIVE_LIB = BUILD_DIR / "libsvtfastio.so"
+NATIVE_FLAGS = ("-O3", "-march=native", "-fPIC", "-Wall", "-Wextra",
+                "-std=c++17", "-pthread", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 #: Seconds the last build took (0.0 when the library was already built).
 build_seconds = 0.0
+#: ptxas's resource report (``-Xptxas -v``) of the last build, per source.
+ptxas_report: dict = {}
 
 
 def _nvcc() -> str:
@@ -60,7 +73,7 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless the library for them exists; return it."""
-    global build_seconds
+    global build_seconds, ptxas_report
     so = library_path()
     if so.exists():
         build_seconds = 0.0
@@ -78,8 +91,11 @@ def build() -> Path:
         procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                   stderr=subprocess.PIPE, text=True)
                  for cmd in compiles]
-        for cmd, proc in zip(compiles, procs):
-            _raise_on_failure(cmd, proc, *proc.communicate())
+        report = {}
+        for src, cmd, proc in zip(srcs, compiles, procs):
+            out, err = proc.communicate()
+            _raise_on_failure(cmd, proc, out, err)
+            report[src.name] = err
         link = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
                 *(str(o) for o in objs)]
         proc = subprocess.run(link, capture_output=True, text=True)
@@ -89,7 +105,28 @@ def build() -> Path:
         for path in (*objs, tmp):
             path.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
+    ptxas_report = report
     return so
+
+
+def build_native() -> Path:
+    """Compile the host library unless it is newer than its source; return
+    its path."""
+    if (NATIVE_LIB.exists()
+            and NATIVE_LIB.stat().st_mtime >= NATIVE_SRC.stat().st_mtime):
+        return NATIVE_LIB
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"libsvtfastio.{os.getpid()}.tmp"
+    cmd = ["g++", *NATIVE_FLAGS, "-o", str(tmp), str(NATIVE_SRC), "-lz"]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"native build failed (exit {proc.returncode}):"
+                               f"\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, NATIVE_LIB)
+    finally:
+        tmp.unlink(missing_ok=True)
+    return NATIVE_LIB
 
 
 def _raise_on_failure(cmd, proc, out: str, err: str) -> None:

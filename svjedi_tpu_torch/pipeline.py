@@ -3,8 +3,9 @@
 Counterpart of ``svjedi_tpu/pipeline.py`` with the same artifacts on disk
 (``<prefix>.gfa``, ``<prefix>_svs_edges.json``, ``<prefix>_ignored_svs.txt``,
 ``<prefix>_informative_aln.json``, ``<prefix>_genotype.vcf``,
-``<prefix>_stats.json``). The device is chosen once here: ``cuda:0`` when
-a card is visible, otherwise the CPU, and it does not change during a run.
+``<prefix>_stats.json``). The device is chosen once here and does not
+change during a run: ``cuda:0`` unless the caller names the CPU; with no
+card visible and no device named, the run raises.
 The DP engine follows the device unless named (``align/pipeline.py``:
 ``resolve_engine``).
 """
@@ -19,32 +20,39 @@ from typing import Dict, Optional
 
 import torch
 
-from svjedi_tpu.align.index import build_panel_index
-from svjedi_tpu.config import PipelineConfig
-from svjedi_tpu.genotype.filter_gaf import (
+from .align.index import build_panel_index
+from .config import PipelineConfig
+from .genotype.filter_gaf import (
     counts_from_informative,
     write_informative_json,
 )
-from svjedi_tpu.genotype.vcf_writer import write_genotyped_vcf
-from svjedi_tpu.graph.build import (
+from .genotype.vcf_writer import write_genotyped_vcf
+from .graph.build import (
     build_graph,
     write_gfa,
     write_ignored_svs,
     write_svs_edges_json,
 )
-from svjedi_tpu.graph.cluster import build_panel
-from svjedi_tpu.graph.svparse import parse_vcf_svs
-from svjedi_tpu.io.fasta import read_fasta
-from svjedi_tpu.io.fastq import read_reads
-from svjedi_tpu.utils.stats import RunStats
-
+from .graph.cluster import build_panel
+from .graph.svparse import parse_vcf_svs
+from .io.fasta import read_fasta
+from .io.fastq import read_reads
+from .utils.native import load_native
+from .utils.stats import RunStats
 from .align.pipeline import align_and_count, resolve_engine
 from .kernels import band_dp_dma, band_dp_v3
 
 
 def select_device() -> torch.device:
-    """``cuda:0`` when a CUDA device is visible, else the CPU."""
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    """``cuda:0``; raises when no CUDA device is visible (the CPU is only
+    ever run when a caller names it)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible: svjedi_tpu_torch runs on the GPU "
+            'unless asked for the CPU (device=torch.device("cpu"), or '
+            "--device cpu on the command line)"
+        )
+    return torch.device("cuda:0")
 
 
 def merge_shards(
@@ -90,8 +98,9 @@ def run_pipeline(
     device: Optional[torch.device] = None,
     engine: Optional[str] = None,
 ) -> Dict:
-    """Run all stages on ``device`` (default: :func:`select_device`) with
-    the DP ``engine`` (default: ``gather`` on the CPU, ``v3`` on a card)."""
+    """Run all stages on ``device`` (default: :func:`select_device`, the
+    card) with the DP ``engine`` (default: ``gather`` on the CPU, ``v3`` on a
+    card)."""
     if cfg.multihost:
         raise _not_ported("--multihost", "M10")
     if cfg.dist.data_shards > 1:
@@ -182,7 +191,7 @@ def run_pipeline(
     decoy = None
     if cfg.align.decoy:
         if cfg.dist.decoy_shards > 1:
-            from svjedi_tpu.dist.decoy_shard import build_decoy_shard
+            from .dist.decoy_shard import build_decoy_shard
 
             G = cfg.dist.decoy_shards
             with stats.timer("build_decoy"):
@@ -200,7 +209,7 @@ def run_pipeline(
                 "decoy_shard_hit_bytes", [s.hit_bytes() for s in decoy]
             )
         else:
-            from svjedi_tpu.align.decoy import build_decoy
+            from .align.decoy import build_decoy
 
             with stats.timer("build_decoy"):
                 decoy = build_decoy(
@@ -224,7 +233,7 @@ def run_pipeline(
     elif stream_mode is None:
         stream_mode = True
     if stream_mode:
-        from svjedi_tpu.io.fastq import ReadStream
+        from .io.fastq import ReadStream
 
         reads = ReadStream(cfg.reads)
         stats.set("read_loader", "stream")
@@ -241,6 +250,7 @@ def run_pipeline(
         stats.set("read_bases", int(reads.lengths.sum()))
 
     launches0 = band_dp_v3.launches
+    rev_launches0 = band_dp_v3.rev_launches
     dma_launches0 = band_dp_dma.launches
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -261,7 +271,13 @@ def run_pipeline(
         Path(cfg.profile_dir).mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(Path(cfg.profile_dir) / "trace.json"))
     stats.set("seed_path", "host")
+    # The host library serves seeding and chaining; without it the numpy
+    # path runs (kernels/build.py:build_native builds it). Recorded is the
+    # file the loader opened.
+    native = load_native()
+    stats.set("native_lib", native._lib._name if native else None)
     stats.set("band_dp_v3_launches", band_dp_v3.launches - launches0)
+    stats.set("band_dp_v3_rev_launches", band_dp_v3.rev_launches - rev_launches0)
     stats.set("band_dp_dma_launches", band_dp_dma.launches - dma_launches0)
     if device.type == "cuda":
         stats.set(
@@ -276,7 +292,7 @@ def run_pipeline(
     if winners.rescore_flag is not None:
         stats.set("n_audit_rescore_below", int(winners.rescore_flag.sum()))
     if cfg.write_gaf:
-        from svjedi_tpu.align.gaf_out import write_gaf as _write_gaf
+        from .align.gaf_out import write_gaf as _write_gaf
 
         _write_gaf(f"{prefix}.gaf", panel, winners, reads)
     stats.set(

@@ -11,6 +11,7 @@ differ only where optimal alignments tie, and every differing span is
 checked to be optimal.
 """
 
+import importlib
 import inspect
 import re
 
@@ -20,16 +21,9 @@ import torch
 
 from svjedi_tpu.align import device as jdev
 from svjedi_tpu.align import pipeline as jpipe
-from svjedi_tpu.align.decoy import build_decoy
 from svjedi_tpu.align.extend import DPParams as JaxDPParams
-from svjedi_tpu.align.index import build_panel_index
-from svjedi_tpu.align.seed import ChainParams, seed_candidates
-from svjedi_tpu.config import AlignConfig, GenotypeConfig, resolve_min_count_density
-from svjedi_tpu.graph.build import build_graph
-from svjedi_tpu.graph.cluster import build_panel
-from svjedi_tpu.graph.svparse import parse_vcf_svs
+from svjedi_tpu.config import resolve_min_count_density
 from svjedi_tpu.io import sim
-from svjedi_tpu.io.fastq import read_reads
 from svjedi_tpu_torch.align import device as tdev
 from svjedi_tpu_torch.align import pipeline as tpipe
 
@@ -48,9 +42,40 @@ COPIED = (
 )
 
 
+def _inputs(pkg: str, tmp, chroms):
+    """Panel, indexes, configs and reads built by package ``pkg``'s own host
+    modules from the same files: the port's functions get the port's types
+    (``align_and_count`` tells a ``ReadSet`` from a stream by its class)."""
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    config = mod("config")
+    cfg = config.AlignConfig()
+    parsed = mod("graph.svparse").parse_vcf_svs(
+        tmp / "truth.vcf", {c: len(x) for c, x in chroms.items()})
+    panel = mod("graph.cluster").build_panel(
+        mod("graph.build").build_graph(chroms, parsed), flank=cfg.flank,
+        cluster_gap=cfg.cluster_gap,
+        max_paths_per_cluster=cfg.max_paths_per_cluster,
+        max_hops_per_path=cfg.max_hops_per_path,
+    )
+    hits = cfg.max_hits_per_minimizer
+    index = mod("align.index").build_panel_index(
+        panel, k=cfg.kmer, w=cfg.window, max_hits_per_minimizer=hits)
+    decoy = mod("align.decoy").build_decoy(
+        panel, k=cfg.kmer, w=cfg.window, max_hits_per_minimizer=hits)
+    return {
+        "panel": panel, "index": index, "decoy": decoy, "cfg": cfg,
+        "gcfg": config.GenotypeConfig(),
+        "reads": mod("io.fastq").read_reads(str(tmp / "reads.fastq")),
+        "seed": mod("align.seed"),
+    }
+
+
 @pytest.fixture(scope="module")
 def bundle(tmp_path_factory):
-    """Two chromosomes, 8 DEL/INS/INV, ~12x of 3 kb reads, decoy on."""
+    """Two chromosomes, 8 DEL/INS/INV, ~12x of 3 kb reads, decoy on; the
+    inputs of each package built by its own host modules."""
     tmp = tmp_path_factory.mktemp("torch_align")
     s = sim.simulate(
         seed=11, chrom_lengths={"chrA": 32000, "chrB": 26000}, n_svs=8,
@@ -62,36 +87,31 @@ def bundle(tmp_path_factory):
     )
     sim.write_truth_vcf(s, tmp / "truth.vcf")
     sim.write_fastq(tmp / "reads.fastq", names, seqs)
-    cfg = AlignConfig()
-    parsed = parse_vcf_svs(tmp / "truth.vcf",
-                           {c: len(x) for c, x in s.chroms.items()})
-    panel = build_panel(
-        build_graph(s.chroms, parsed), flank=cfg.flank,
-        cluster_gap=cfg.cluster_gap,
-        max_paths_per_cluster=cfg.max_paths_per_cluster,
-        max_hops_per_path=cfg.max_hops_per_path,
-    )
-    index = build_panel_index(panel, k=cfg.kmer, w=cfg.window,
-                              max_hits_per_minimizer=cfg.max_hits_per_minimizer)
-    decoy = build_decoy(panel, k=cfg.kmer, w=cfg.window,
-                        max_hits_per_minimizer=cfg.max_hits_per_minimizer)
-    return {
-        "panel": panel, "index": index, "decoy": decoy, "cfg": cfg,
-        "gcfg": GenotypeConfig(), "reads": read_reads(str(tmp / "reads.fastq")),
-    }
+    return {pkg: _inputs(pkg, tmp, s.chroms)
+            for pkg in ("svjedi_tpu", "svjedi_tpu_torch")}
 
 
-def _align(bundle, **kw):
-    b = bundle
-    args = (b["reads"], b["panel"], b["index"], b["cfg"], b["gcfg"])
-    if "device" not in kw:
-        return jpipe.align_and_count(*args, decoy=b["decoy"])
-    return tpipe.align_and_count(*args, decoy=b["decoy"], **kw)
+def _args(b):
+    return b["reads"], b["panel"], b["index"], b["cfg"], b["gcfg"]
 
 
 @pytest.fixture(scope="module")
 def runs(bundle):
-    return _align(bundle), _align(bundle, device=CPU)
+    j, t = bundle["svjedi_tpu"], bundle["svjedi_tpu_torch"]
+    return (jpipe.align_and_count(*_args(j), decoy=j["decoy"]),
+            tpipe.align_and_count(*_args(t), decoy=t["decoy"], device=CPU))
+
+
+def test_port_inputs_are_the_ports_own_types(bundle):
+    """Each side's inputs come from its own package and hold equal data."""
+    j, t = bundle["svjedi_tpu"], bundle["svjedi_tpu_torch"]
+    assert isinstance(t["reads"], tpipe.ReadSet)
+    assert not isinstance(j["reads"], tpipe.ReadSet)
+    assert type(t["panel"]).__module__ == "svjedi_tpu_torch.graph.cluster"
+    assert type(t["index"]).__module__ == "svjedi_tpu_torch.align.index"
+    np.testing.assert_array_equal(t["reads"].codes, j["reads"].codes)
+    np.testing.assert_array_equal(t["index"].path_len, j["index"].path_len)
+    assert t["cfg"] == tpipe.AlignConfig() and t["gcfg"] == tpipe.GenotypeConfig()
 
 
 def test_align_and_count_matches_jax(runs):
@@ -111,7 +131,9 @@ def test_align_and_count_engine_matches_jax(bundle, runs, engine):
     (checked optimal per block in test_chunk_spans_are_optimal and
     test_chunk_onepass_engines_match_jax)."""
     jcounts, _, jw = runs[0]
-    tcounts, _, tw = _align(bundle, device=CPU, engine=engine)
+    t = bundle["svjedi_tpu_torch"]
+    tcounts, _, tw = tpipe.align_and_count(*_args(t), decoy=t["decoy"],
+                                           device=CPU, engine=engine)
     assert len(tw.read) == len(jw.read) > 50
     for f in ("read", "cluster", "path", "strand", "score", "mapq"):
         np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f), err_msg=f)
@@ -122,22 +144,36 @@ def test_align_and_count_engine_matches_jax(bundle, runs, engine):
     assert tcounts == jcounts
 
 
-@pytest.fixture(scope="module")
-def chunk(bundle):
-    """One chunk, seeded once, through the JAX and the port dispatch."""
-    reads, panel, index, cfg = (bundle[k] for k in ("reads", "panel", "index", "cfg"))
-    cands = seed_candidates(reads, index, chain_params=ChainParams(
+def _seed(b):
+    cfg, seed = b["cfg"], b["seed"]
+    params = seed.ChainParams(
         min_anchors=cfg.min_anchors, max_chains=cfg.max_chains,
         max_gap=cfg.chain_max_gap, drift_abs=cfg.chain_drift_abs,
         drift_permille=cfg.chain_drift_permille, block_rows=cfg.block_rows,
         ext_min_anchors=cfg.chain_ext_min_anchors,
-    ))
-    jdisp = jpipe.dispatch_chunk(reads, panel, index, cands, cfg,
-                                 jdev.upload(reads.codes, panel))
+    )
+    return seed.seed_candidates(b["reads"], b["index"], chain_params=params)
+
+
+def _t(bundle, *keys):
+    return (bundle["svjedi_tpu_torch"][k] for k in keys)
+
+
+@pytest.fixture(scope="module")
+def chunk(bundle):
+    """One chunk, seeded once by each package, through the JAX and the port
+    dispatch; the two packages' candidates are equal."""
+    j, t = bundle["svjedi_tpu"], bundle["svjedi_tpu_torch"]
+    jcands, cands = _seed(j), _seed(t)
+    for f in ("read", "path", "strand", "d0"):
+        np.testing.assert_array_equal(getattr(cands, f), getattr(jcands, f))
+    jdisp = jpipe.dispatch_chunk(
+        j["reads"], j["panel"], j["index"], jcands, j["cfg"],
+        jdev.upload(j["reads"].codes, j["panel"]))
     (jrows,) = jpipe.collect_outs([jdisp])
-    tdisp = tpipe.dispatch_chunk(reads, panel, index, cands, cfg,
-                                 tdev.upload(reads.codes, panel, CPU),
-                                 engine="v3")
+    tdisp = tpipe.dispatch_chunk(
+        t["reads"], t["panel"], t["index"], cands, t["cfg"],
+        tdev.upload(t["reads"].codes, t["panel"], CPU), engine="v3")
     (trows,) = tpipe.collect_outs([tdisp])
     return cands, jdisp, jrows, tdisp, trows
 
@@ -158,7 +194,7 @@ def test_chunk_onepass_engines_match_jax(bundle, chunk, engine):
     have equal scores and optimal spans where they differ."""
     from _span_check import assert_spans_optimal
 
-    reads, panel, index, cfg = (bundle[k] for k in ("reads", "panel", "index", "cfg"))
+    reads, panel, index, cfg = _t(bundle, "reads", "panel", "index", "cfg")
     cands, jdisp, jrows, _, _ = chunk
     n = len(cands)
     disp = tpipe.dispatch_chunk(reads, panel, index, cands, cfg,
@@ -197,14 +233,15 @@ def _windows(disp, cand, m, bucket, cfg):
 def test_chunk_spans_are_optimal(bundle, chunk):
     from _span_check import assert_spans_optimal
 
-    reads, index, cfg = bundle["reads"], bundle["index"], bundle["cfg"]
+    j = bundle["svjedi_tpu"]
+    reads, index, cfg = _t(bundle, "reads", "index", "cfg")
     cands, jdisp, jrows, tdisp, trows = chunk
     n = len(cands)
     # One-pass window coordinates per candidate: [score, qs, ts, qe, te].
     jwin = np.full((n, 5), -1, dtype=np.int64)
     for (sel, _, _, _), host in zip(jdisp.batches, jrows):
         jwin[sel] = host[: len(sel)]
-    jw, jwi = jpipe.finalize_chunk(reads, index, cfg, jdisp, jrows)
+    jw, jwi = jpipe.finalize_chunk(j["reads"], j["index"], j["cfg"], jdisp, jrows)
     tw, twi = tpipe.finalize_chunk(reads, index, cfg, tdisp, trows)
     np.testing.assert_array_equal(tdisp.block_score, jdisp.block_score)
     np.testing.assert_array_equal(twi, jwi)
@@ -260,17 +297,18 @@ def test_resolve_engine_follows_the_jax_rule():
 def test_copied_helper_source_is_verbatim(name):
     ours = inspect.getsource(getattr(tpipe, name))
     theirs = inspect.getsource(getattr(jpipe, name))
-    if name == "_audit_line":  # the one relative import becomes absolute
-        theirs = theirs.replace("from ..graph.build", "from svjedi_tpu.graph.build")
     assert ours == theirs
     src = inspect.getsource(tpipe)
     assert re.search(
-        rf"# Copied (verbatim )?from svjedi_tpu/align/pipeline.py:{name}[.;]", src
+        rf"# Copied verbatim from svjedi_tpu/align/pipeline.py:{name}\.", src
     )
 
 
 def test_copied_helpers_behave_like_originals(bundle, chunk):
-    reads, panel, index, cfg = (bundle[k] for k in ("reads", "panel", "index", "cfg"))
+    """Each package's helper on its own inputs; the dispatch layout (plain
+    arrays) is the JAX run's, so both helpers see the same candidates."""
+    j = bundle["svjedi_tpu"]
+    reads, panel, index, cfg = _t(bundle, "reads", "panel", "index", "cfg")
     rng = np.random.default_rng(4)
     codes = rng.integers(0, 5, 500).astype(np.int8)
     np.testing.assert_array_equal(tpipe.revcomp_codes(codes),
@@ -285,36 +323,40 @@ def test_copied_helpers_behave_like_originals(bundle, chunk):
                                   jpipe.compute_mapq(*args))
 
     cands, jdisp, jrows, _, _ = chunk
+    jcands = _seed(j)
+    jargs = (j["reads"], j["index"], jcands, j["cfg"])
     for a, b in zip(tpipe.candidate_windows(reads, index, cands, cfg),
-                    jpipe.candidate_windows(reads, index, cands, cfg)):
+                    jpipe.candidate_windows(*jargs)):
         np.testing.assert_array_equal(a, b)
     dd = jdisp.device_data
     for a, b in zip(tpipe.candidate_layout(reads, index, cands, cfg, dd),
-                    jpipe.candidate_layout(reads, index, cands, cfg, dd)):
+                    jpipe.candidate_layout(*jargs, dd)):
         np.testing.assert_array_equal(a, b)
 
-    jw, jwi = jpipe.finalize_chunk(reads, index, cfg, jdisp, jrows)
+    jw, jwi = jpipe.finalize_chunk(j["reads"], j["index"], j["cfg"], jdisp, jrows)
     tw, twi = tpipe.finalize_chunk(reads, index, cfg, jdisp, jrows)
     np.testing.assert_array_equal(twi, jwi)
     for f in WINNER_FIELDS:
         np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f), err_msg=f)
-    jw = jpipe.cross_cluster_prune(jpipe.prune_secondaries(jw, reads, cfg), reads)
+    jr = j["reads"]
+    jw = jpipe.cross_cluster_prune(jpipe.prune_secondaries(jw, jr, j["cfg"]), jr)
     tw = tpipe.cross_cluster_prune(tpipe.prune_secondaries(tw, reads, cfg), reads)
     for f in WINNER_FIELDS:
         np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f), err_msg=f)
-    density = resolve_min_count_density(bundle["gcfg"], cfg)
+    density = resolve_min_count_density(j["gcfg"], j["cfg"])
     for w in (jw, tw):  # audit lines with and without the stats pass
         assert tpipe.count_support(panel, w, reads, 100, True, density) == \
-            jpipe.count_support(panel, w, reads, 100, True, density)
-        jpipe.compute_winner_stats(reads, panel, w, cfg)
+            jpipe.count_support(j["panel"], w, jr, 100, True, density)
+        jpipe.compute_winner_stats(jr, j["panel"], w, j["cfg"])
 
 
 def test_compute_winner_stats_matches_jax(bundle, chunk):
-    reads, panel, index, cfg = (bundle[k] for k in ("reads", "panel", "index", "cfg"))
+    j = bundle["svjedi_tpu"]
+    reads, panel, index, cfg = _t(bundle, "reads", "panel", "index", "cfg")
     _, jdisp, jrows, _, _ = chunk
-    jw, _ = jpipe.finalize_chunk(reads, index, cfg, jdisp, jrows)
+    jw, _ = jpipe.finalize_chunk(j["reads"], j["index"], j["cfg"], jdisp, jrows)
     tw, _ = tpipe.finalize_chunk(reads, index, cfg, jdisp, jrows)
-    jpipe.compute_winner_stats(reads, panel, jw, cfg)
+    jpipe.compute_winner_stats(j["reads"], j["panel"], jw, j["cfg"])
     tpipe.compute_winner_stats(reads, panel, tw, cfg, CPU)
     for f in ("matches", "blocklen", "rescore_deficit", "rescore_flag"):
         np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f), err_msg=f)

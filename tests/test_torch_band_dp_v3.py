@@ -79,6 +79,28 @@ def test_fwd_matches_jax(bucket):
     assert tuple(got[2]) == (0, -1, -1)
 
 
+@pytest.mark.parametrize(
+    "scores", [dict(match=3), dict(mismatch=-200), dict(match=200)],
+    ids=["match3", "mismatch-200", "match200"],
+)
+def test_fwd_other_scores_match_jax(scores):
+    """Scores the CUDA kernel's wide build serves (beyond int8, or match x
+    bucket >= 2^16 at the large buckets) keep the JAX contract."""
+    bucket = 128
+    q, t = _problems(23, bucket)
+    qT, tT = q.T.copy(), t.T.copy()
+    ref = np.asarray(jax_v3.band_dp_v3_fwd(
+        jnp.asarray(qT), jnp.asarray(tT), bucket, BAND, JaxDPParams(**scores),
+        interpret=True,
+    ))
+    got = v3.band_dp_v3_fwd(
+        torch.from_numpy(qT), torch.from_numpy(tT), bucket, BAND,
+        DPParams(**scores),
+    ).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert (got[3:, 0] > 0).any()
+
+
 def test_fwd_n_valid_and_row_bounds_match_jax():
     """n_valid < P and real per-group row bounds, vs JAX and vs unbounded."""
     bucket = 256
@@ -180,4 +202,20 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
     ref = v3.band_dp_v3_fwd_ref(qT, tT, bucket, BAND, DPParams(), n_valid=nvb)
     torch.cuda.synchronize()
     assert v3.launches == launches + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scores", [dict(mismatch=-200), dict(match=200)],
+                         ids=["mismatch-200", "match200"])
+def test_cuda_kernel_wide_build_matches_plain_version(cuda_device, scores):
+    """Scores outside int8 take the kernel's wide build."""
+    bucket = 512
+    q, t = _problems(29, bucket)
+    qT = torch.from_numpy(q.T.copy()).to(cuda_device)
+    tT = torch.from_numpy(t.T.copy()).to(cuda_device)
+    params = DPParams(**scores)
+    got = v3.band_dp_v3_fwd(qT, tT, bucket, BAND, params)
+    ref = v3.band_dp_v3_fwd_ref(qT, tT, bucket, BAND, params)
+    torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())

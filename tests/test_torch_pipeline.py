@@ -1,11 +1,14 @@
 """``python -m svjedi_tpu_torch`` end to end vs ``python -m svjedi_tpu`` (CPU).
 
-On the CPU both packages score with the one-pass ``gather`` engine, so the
-GAF, the audit table and the genotype VCF must be byte-identical on a
-simulated bundle; the port's shard + merge mode must reproduce its single
-run; and the port must import and run with JAX absent.
+On the CPU (``--device cpu``) both packages score with the one-pass
+``gather`` engine, so the GAF, the audit table and the genotype VCF must be
+byte-identical on a simulated bundle; the port's shard + merge mode must
+reproduce its single run; the port must import and run with JAX and the JAX
+package absent; and without ``--device cpu`` it must refuse to run when no
+card is visible.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -15,10 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from svjedi_tpu.config import DistConfig, PipelineConfig
 from svjedi_tpu.io import sim
 from svjedi_tpu.io.fasta import write_fasta
 from svjedi_tpu_torch.cli import main as torch_cli
+from svjedi_tpu_torch.config import DistConfig, PipelineConfig
 
 from tests.conftest import REPO_ROOT
 
@@ -54,9 +57,11 @@ def single_runs(bundle):
             "-q", str(paths["reads"])]
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(REPO_ROOT),
                OMP_NUM_THREADS="1")
+    device = {"svjedi_tpu": [], "svjedi_tpu_torch": ["--device", "cpu"]}
     procs = {
         pkg: subprocess.Popen(
-            [sys.executable, "-m", pkg, *base, "-p", str(tmp / pkg), "--gaf"],
+            [sys.executable, "-m", pkg, *base, "-p", str(tmp / pkg), "--gaf",
+             *device[pkg]],
             cwd=REPO_ROOT, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True,
         )
@@ -79,6 +84,8 @@ def test_cli_run_matches_jax_vcf(single_runs):
     assert stats["counters"]["device"] == "cpu"
     assert stats["counters"]["engine"] == "gather"  # the JAX CPU engine
     assert stats["counters"]["band_dp_v3_launches"] == 0
+    assert stats["counters"]["band_dp_v3_rev_launches"] == 0
+    assert "native_lib" in stats["counters"]
     assert stats["counters"]["band_dp_dma_launches"] == 0
 
 
@@ -95,7 +102,7 @@ def test_cli_run_matches_jax_alignments(single_runs, suffix):
 def test_shard_merge_and_resume_match_single_run(bundle, single_runs):
     tmp, paths = bundle
     base = ["-v", str(paths["vcf"]), "-r", str(paths["ref"]),
-            "-q", str(paths["reads"])]
+            "-q", str(paths["reads"]), "--device", "cpu"]
     sharded = str(tmp / "sharded")
     assert torch_cli(["run", *base, "-p", sharded, "--shard", "0/2"]) == 0
     assert torch_cli(["run", *base, "-p", sharded, "--shard", "1/2",
@@ -123,10 +130,55 @@ def test_unported_modes_raise(dist, multihost):
         run_pipeline(PipelineConfig(dist=dist, multihost=multihost))
 
 
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(
+        bundle, monkeypatch):
+    """No card visible: ``run_pipeline`` and ``run`` without ``--device cpu``
+    raise, naming the way to ask for the CPU; nothing falls back."""
+    from svjedi_tpu_torch import pipeline
+
+    tmp, paths = bundle
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PipelineConfig(vcf=str(paths["vcf"]), ref=str(paths["ref"]),
+                         reads=(str(paths["reads"]),), prefix=str(tmp / "nocard"))
+    for call in (lambda: pipeline.select_device(),
+                 lambda: pipeline.run_pipeline(cfg),
+                 lambda: torch_cli(["run", "-v", str(paths["vcf"]), "-r",
+                                    str(paths["ref"]), "-q", str(paths["reads"]),
+                                    "-p", str(tmp / "nocard")])):
+        with pytest.raises(RuntimeError, match="--device cpu") as err:
+            call()
+        assert 'device=torch.device("cpu")' in str(err.value)
+    assert not (tmp / "nocard_stats.json").exists()
+    proc = subprocess.run(
+        [sys.executable, "-m", "svjedi_tpu_torch", "run", "-v", str(paths["vcf"]),
+         "-r", str(paths["ref"]), "-q", str(paths["reads"]),
+         "-p", str(tmp / "nocard")],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(REPO_ROOT), CUDA_VISIBLE_DEVICES=""),
+    )
+    assert proc.returncode != 0
+    assert "--device cpu" in proc.stderr
+
+
+def test_chip_smoke_imports_nothing_of_the_jax_package():
+    tree = ast.parse((REPO_ROOT / "chip_smoke.py").read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append("." * node.level + (node.module or ""))
+    assert "svjedi_tpu_torch.pipeline" in names  # the scan sees its imports
+    bad = [n for n in names if n.split(".")[0] in ("svjedi_tpu", "jax")
+           or n.startswith(".")]
+    assert not bad, bad
+
+
 def test_port_imports_and_runs_without_jax():
     code = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["svjedi_tpu"] = None  # and any import of the JAX package
 import numpy as np, torch
 import svjedi_tpu_torch
 for mod in pkgutil.walk_packages(svjedi_tpu_torch.__path__, "svjedi_tpu_torch."):
@@ -140,8 +192,9 @@ assert out.shape == (128, 3) and bool((out[:, 0] == 128).all()), out[:4]
 from svjedi_tpu_torch.kernels.band_dp import band_dp_onepass
 one = band_dp_onepass(q.T.contiguous(), t.T.contiguous(), 128)
 assert bool((one["score"] == 128).all()), one["score"][:4]
-assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules
-               if sys.modules[m] is not None)
+loaded = [m for m in sys.modules if sys.modules[m] is not None]
+assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
+assert not any(m == "svjedi_tpu" or m.startswith("svjedi_tpu.") for m in loaded)
 print("ok")
 """
     proc = subprocess.run(
