@@ -10,26 +10,30 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    the max SM clock) that the kernels' bounds use. Builds the port's native
    host library (``svjedi_tpu_torch/native/fastio.cpp``) and the CUDA
    kernels (``svjedi_tpu_torch/kernels/csrc``), prints ptxas's registers and
-   spills for each build of the v3 kernel (or that the library was cached)
-   and the DPX instructions in its SASS; fails if any build has no DPX
-   add-max (VIADDMNMX).
+   spills for each build (or that the library was cached) and the DPX
+   instructions in the SASS of K1/K1' (8 builds), K3 (4) and K4 (2); fails
+   if a K1/K1' build or a narrow K3 build has no DPX add-max (VIADDMNMX).
 2. Kernel vs plain: the band_dp_v3 kernel (K1) against its plain PyTorch
    version on the same CUDA tensors, exactly, at every bucket of
    ``AlignConfig.buckets`` with band 128 and at bucket 2048 with band 256
    (P = 256), at a production-shaped batch (P = 32768, bucket 2048), with
    and without row bounds, with ``n_valid < P`` and on edge cases; the
-   reverse pass and the two-pass wrapper likewise; the kernel's wide build
-   (scores that match x bucket or int8 cannot hold) at bucket 30720 and at
-   band 256. At P = 32768, bucket 2048 times the kernel, the plain version
-   and the reverse pass, with Gcell/s, the bound and the share of the
-   bound.
+   two-pass wrapper likewise; the reverse kernel (K1') against
+   ``band_dp_v3_rev_ref`` (flip + roll + the plain forward pass) in each of
+   those cases, on raw windows (derived m, n_valid < P) and on end-clamped
+   windows (m = qe + 1 and derived m); both kernels' wide build (scores
+   that match x bucket or int8 cannot hold) at bucket 30720 and at band
+   256. At P = 32768, bucket 2048 times K1, K1' alone, the flipped-window
+   reverse pass it replaced (flip + roll + the forward kernel) and the
+   plain versions, with Gcell/s, the bound and the share of the bound.
 2b. One-pass kernels vs plain, exactly, at every bucket with band 128 and
    at bucket 2048 with band 256 (P = 256): the pre-gathered entry
    (``band_dp_onepass``, the same edge cases) and the fused-fetch entry
    (``band_dp_dma_raw``) on real upload buffers (forward and reverse-strand
    windows, windows crossing the path bounds, m < bucket, padding rows with
-   m = 0); both at P = 32768, bucket 2048, timed against their plain
-   versions and their bounds.
+   m = 0; at bucket 2048 also K3's wide build and m = 0 beside m = bucket
+   in each warp); both at P = 32768, bucket 2048, timed against their
+   plain versions and their bounds.
 2c. Pre-gathered path: the windows of phase 2b's production batch fetched
    on the card (``gather_windows``) and scored by ``band_dp_onepass``; the
    result must equal the fused-fetch kernel's on the same problems.
@@ -37,7 +41,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (``bench.py``'s scale config seeds) and runs
    ``python -m svjedi_tpu_torch run`` on it as a subprocess (the card, the
    v3 engine, with ``--gaf``). It must exit 0, genotype at accuracy 100.0,
-   launch the kernel, load the port's own native library, and print none
+   launch the forward and the reverse kernel, load the port's own native
+   library, and print none
    of the aligner's fault warnings.
 4. One-pass path: ``run_pipeline(..., engine="dma")`` in this process on
    phase 3's files, gated like phase 3, with band_dp_dma launches > 0 and
@@ -97,6 +102,15 @@ INT32_LANES_PER_SM = 64
 #: vertical, reset at 0, horizontal source, best start.
 OPS_PER_CELL = {"k1": 9, "onepass": 14}
 DPX_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX")
+#: (kernel name in the SASS, number of builds, regex of the builds that must
+#: use VIADDMNMX). K1 and K1': forward and reverse x narrow and wide x band
+#: 128 and 256; K3: narrow and wide x band 128 and 256, the narrow builds
+#: (template flag kWide = false, mangled "Lb0E") checked; K4: two bands.
+DPX_CHECKS = (
+    ("band_dp_v3_kernel", 8, r"."),
+    ("band_dp_dma_kernel", 4, r"band_dp_dma_kernelILi\d+ELb0E"),
+    ("band_dp_onepass_kernel", 2, r"^$"),
+)
 
 
 def phase_device():
@@ -141,21 +155,27 @@ def phase_device():
     if build.build_seconds == 0.0:
         log("[build] ptxas report unavailable: the kernels' library was "
             "cached, not rebuilt")
-    for line in build.ptxas_report.get("band_dp_v3.cu", "").splitlines():
-        if "registers" in line or "spill" in line or "entry function" in line:
-            log(f"[build] ptxas band_dp_v3.cu: {line.strip()}")
-    found = dpx_in_sass(build.library_path(), "band_dp_v3_fwd_kernel")
-    for fn, ops in found.items():
-        log(f"[build] SASS of {fn}: "
-            + ", ".join(f"{op} {n}" for op, n in ops.items()))
-    if len(found) != 4:
-        fail(f"expected 4 builds of band_dp_v3_fwd_kernel in the SASS, "
-             f"found {len(found)}")
-    emulated = [fn for fn, ops in found.items() if not ops["VIADDMNMX"]]
-    if emulated:
-        fail(f"no DPX add-max (VIADDMNMX) in {emulated}: emulated")
-    log("[build] DPX add-max (VIADDMNMX) found in every build of "
-        "band_dp_v3_fwd_kernel")
+    for src in ("band_dp_v3.cu", "band_dp_onepass.cu"):
+        for line in build.ptxas_report.get(src, "").splitlines():
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
+                log(f"[build] ptxas {src}: {line.strip()}")
+    # Every K1 / K1' build must use DPX add-max, and so must K3's narrow
+    # builds (kWide false); K3's wide builds and K4 are printed only.
+    for kernel, n_builds, must in DPX_CHECKS:
+        found = dpx_in_sass(build.library_path(), kernel)
+        for fn, ops in found.items():
+            log(f"[build] SASS of {fn}: "
+                + ", ".join(f"{op} {n}" for op, n in ops.items()))
+        if len(found) != n_builds:
+            fail(f"expected {n_builds} builds of {kernel} in the SASS, "
+                 f"found {len(found)}")
+        emulated = [fn for fn, ops in found.items()
+                    if re.search(must, fn) and not ops["VIADDMNMX"]]
+        if emulated:
+            fail(f"no DPX add-max (VIADDMNMX) in {emulated}: emulated")
+        log(f"[build] DPX add-max (VIADDMNMX) found in every build of "
+            f"{kernel} matching {must!r}")
     return peak_ops
 
 
@@ -249,7 +269,14 @@ def phase_kernel(peak_ops: float):
     dev = torch.device("cuda:0")
     params = DPParams()
     max_err = 0
+    rev_err = 0
     n_cases = 0
+
+    def end_clamped(qT, tT, qe, te, bucket, band):
+        rows = torch.arange(bucket, device=dev)[:, None]
+        trows = torch.arange(bucket + band, device=dev)[:, None]
+        return (torch.where(rows <= qe[None], qT, 4).to(torch.int8),
+                torch.where(trows <= te[None], tT, 4).to(torch.int8))
 
     def compare(what, got, ref):
         nonlocal max_err, n_cases
@@ -260,12 +287,32 @@ def phase_kernel(peak_ops: float):
         if err != 0:
             fail(f"kernel disagrees with the plain version: {what} "
                  f"(max abs err {err})")
+        return err
 
     def fwd_case(tag, qT, tT, bucket, n_valid, band=BAND, p=params):
         got = v3.band_dp_v3_fwd(qT, tT, bucket, band, p, n_valid)
         ref = v3.band_dp_v3_fwd_ref(qT, tT, bucket, band, p, n_valid)
         compare(f"fwd {tag}", got, ref)
         return got
+
+    def rev_cases(tag, qT, tT, qe, te, bucket, band=BAND, p=params):
+        """The reverse kernel (K1') against its plain version (flip + roll +
+        the plain forward pass): on raw windows with the derived m and
+        n_valid < P, and on the end-clamped windows the pipeline gives it,
+        with m = qe + 1 and with the derived m. Returns the clamped windows
+        and m."""
+        nonlocal rev_err
+        got = v3.band_dp_v3_rev(qT, tT, bucket, band, p, n_valid=200)
+        ref = v3.band_dp_v3_rev_ref(qT, tT, bucket, band, p, n_valid=200)
+        rev_err = max(rev_err, compare(f"rev raw windows {tag}", got, ref))
+        qT2, tT2 = end_clamped(qT, tT, qe, te, bucket, band)
+        m = (qe + 1).to(torch.int32)
+        ref = v3.band_dp_v3_rev_ref(qT2, tT2, bucket, band, p)
+        for how, m_arg in (("m = qe + 1", m), ("derived m", None)):
+            got = v3.band_dp_v3_rev(qT2, tT2, bucket, band, p, m=m_arg)
+            rev_err = max(rev_err, compare(
+                f"rev end-clamped, {how}, {tag}", got, ref))
+        return qT2, tT2, m
 
     # Every bucket at band 128 (the pipeline's), and bucket 2048 at band
     # 256, the kernel's other build.
@@ -288,12 +335,10 @@ def phase_kernel(peak_ops: float):
         for key in got:
             compare(f"two-pass {key} {tag}", got[key], ref[key])
         compare(f"score_rev == score {tag}", got["score_rev"], got["score"])
-        rev = v3.band_dp_v3_rev(qT, tT, bucket, band, params, n_valid=200)
-        rev_ref = v3.band_dp_v3_rev(qT, tT, bucket, band, params, n_valid=200,
-                                    fwd=v3.band_dp_v3_fwd_ref)
-        compare(f"rev {tag}", rev[:200], rev_ref[:200])
+        rev_cases(tag, qT, tT, got["qe"], got["te"], bucket, band)
         log(f"[kernel] bucket {bucket:5d} band {band} P {P}: fwd, bounded "
-            f"fwd, rev, two-pass exact ({time.perf_counter() - t0:.1f} s)")
+            f"fwd, rev kernel, two-pass exact ({time.perf_counter() - t0:.1f} "
+            f"s)")
 
     # The wide build: match x bucket >= 2^16 (match 3 at bucket 30720), and
     # a mismatch outside int8 at band 256.
@@ -309,11 +354,12 @@ def phase_kernel(peak_ops: float):
         t0 = time.perf_counter()
         tag = (f"wide match={wide.match} mismatch={wide.mismatch} "
                f"bucket={bucket} band={band}")
-        fwd_case(f"{tag} unbounded", qT, tT, bucket, None, band, wide)
+        out = fwd_case(f"{tag} unbounded", qT, tT, bucket, None, band, wide)
         fwd_case(f"{tag} bounds", qT, tT, bucket, nvb, band, wide)
+        rev_cases(tag, qT, tT, out[:, 1], out[:, 2], bucket, band, wide)
         log(f"[kernel] wide build, match {wide.match} mismatch "
             f"{wide.mismatch}, bucket {bucket:5d} band {band} P {P}: fwd, "
-            f"bounded fwd exact ({time.perf_counter() - t0:.1f} s)")
+            f"bounded fwd, rev kernel exact ({time.perf_counter() - t0:.1f} s)")
 
     # Production-shaped batch: P = 32768 at bucket 2048, m-sorted windows.
     P, bucket = 32768, 2048
@@ -329,8 +375,10 @@ def phase_kernel(peak_ops: float):
                          fwd=v3.band_dp_v3_fwd_ref)
     for key in got:
         compare(f"two-pass {key} P=32768", got[key], ref2[key])
-    log(f"[kernel] P 32768 bucket 2048: fwd, bounded fwd, two-pass exact; "
-        f"{n_cases} comparisons, max abs err {max_err}")
+    qT2, tT2, m2 = rev_cases("P=32768 bucket=2048", qT, tT, got["qe"],
+                             got["te"], bucket)
+    log(f"[kernel] P 32768 bucket 2048: fwd, bounded fwd, rev kernel, "
+        f"two-pass exact; {n_cases} comparisons, max abs err {max_err}")
 
     # Times at the production shape.
     ms = cuda_time_ms(
@@ -355,29 +403,34 @@ def phase_kernel(peak_ops: float):
         f"{bound_by} ({cells / 1e9:.3f} Gcell x {OPS_PER_CELL['k1']} ops), "
         f"{100 * bms / ms:.1f}% of bound")
 
-    # K1': the reverse pass as the pipeline runs it (flip + roll, then the
-    # kernel on all rows: the flipped windows put their valid rows last) on
-    # the batch's end-clamped windows, which need qe + 1 rows each.
-    qe, te = got["qe"], got["te"]
-    qT2 = torch.where(torch.arange(bucket, device=dev)[:, None] <= qe[None],
-                      qT, 4).to(torch.int8)
-    tT2 = torch.where(
-        torch.arange(bucket + BAND, device=dev)[:, None] <= te[None], tT, 4
-    ).to(torch.int8)
+    # K1': the reverse kernel alone on the batch's end-clamped windows
+    # (m = qe + 1), which need qe + 1 rows each; beside it the reverse pass
+    # it replaced (flip + roll, then the forward kernel on all rows).
     rev_ms = cuda_time_ms(
-        lambda: v3.band_dp_v3_rev(qT2, tT2, bucket, BAND, params), reps=10)
-    rev_need = (qe.cpu().numpy().astype(np.int64) + 1).clip(min=0)
+        lambda: v3.band_dp_v3_rev(qT2, tT2, bucket, BAND, params, m=m2),
+        reps=20)
+    flip_ms = cuda_time_ms(
+        lambda: v3.band_dp_v3_rev_ref(qT2, tT2, bucket, BAND, params,
+                                      fwd=v3.band_dp_v3_fwd), reps=10)
+    rev_plain_ms = cuda_time_ms(
+        lambda: v3.band_dp_v3_rev_ref(qT2, tT2, bucket, BAND, params), reps=1)
+    rev_need = m2.cpu().numpy().astype(np.int64).clip(min=0)
     rev_cells = float(rev_need.sum()) * BAND
-    rev_bytes = float(rev_need.sum() + (rev_need + BAND).sum()) + 12 * P
+    rev_bytes = float(rev_need.sum() + (rev_need + BAND).sum()) + 16 * P
     rev_bms, rev_by = bound_ms(rev_cells, OPS_PER_CELL["k1"], rev_bytes,
                                peak_ops)
-    log(f"[kernel] band_dp_v3_rev P 32768 bucket 2048 (flip + roll + kernel, "
-        f"all rows): {rev_ms:.3f} ms ({P * bucket * BAND / rev_ms / 1e6:.2f} "
-        f"Gcell/s of rows run); bound {rev_bms:.3f} ms by {rev_by} "
+    log(f"[kernel] band_dp_v3_rev P 32768 bucket 2048 (reverse kernel, m = "
+        f"qe + 1): {rev_ms:.3f} ms ({rev_cells / rev_ms / 1e6:.2f} Gcell/s), "
+        f"plain {rev_plain_ms:.3f} ms, flip + roll + forward kernel "
+        f"{flip_ms:.3f} ms; bound {rev_bms:.3f} ms by {rev_by} "
         f"({rev_cells / 1e9:.3f} Gcell x {OPS_PER_CELL['k1']} ops), "
         f"{100 * rev_bms / rev_ms:.1f}% of bound")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": bound_by}
+    return {
+        "fwd": {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": bound_by},
+        "rev": {"max_abs_err": rev_err, "ms": rev_ms, "plain_ms": rev_plain_ms,
+                "bound_ms": rev_bms, "bound_by": rev_by},
+    }
 
 
 # ---- phase 3 ----------------------------------------------------------------
@@ -448,8 +501,11 @@ def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
         stats = json.load(fh)
     counters, timings = stats["counters"], stats["timings_s"]
     launches = int(counters.get("band_dp_v3_launches", 0))
-    if launches <= 0:
-        fail("the main path launched the band_dp_v3 kernel no time")
+    rev_launches = int(counters.get("band_dp_v3_rev_launches", 0))
+    if launches - rev_launches <= 0:
+        fail("the main path launched the band_dp_v3 forward kernel no time")
+    if rev_launches <= 0:
+        fail("the main path launched the band_dp_v3 reverse kernel no time")
     check_native(counters, "the main path")
     report = contingency_report(paths["vcf"], f"{prefix}_genotype.vcf")
     acc = re.search(r"accuracy: ([\d.]+)", report)
@@ -462,11 +518,11 @@ def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
         + ", ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
     log(f"[main] device {counters.get('device_name')}; "
         f"max_memory_allocated {counters.get('device_max_memory_allocated')} "
-        f"bytes; band_dp_v3 launches {launches} (reverse pass "
-        f"{counters.get('band_dp_v3_rev_launches')}); seed path "
+        f"bytes; band_dp_v3 launches {launches} (reverse kernel "
+        f"{rev_launches}); seed path "
         f"{counters.get('seed_path')}; audit re-score warnings {n_audit_warn}; "
         f"n_audit_rescore_below {counters.get('n_audit_rescore_below')}")
-    return launches, prefix
+    return launches, rev_launches, prefix
 
 
 # ---- phase 2b -----------------------------------------------------------------
@@ -546,11 +602,11 @@ def phase_onepass_kernels(peak_ops: float):
         for key in got:
             compare("k4", f"{key} {tag}", got[key], ref[key])
 
-    def k3_case(tag, data, vecs, bucket, band=BAND):
+    def k3_case(tag, data, vecs, bucket, band=BAND, p=params):
         got = k3.band_dp_dma_raw(data.reads2, data.panel_padded, *vecs,
-                                 bucket=bucket, band=band, params=params)
+                                 bucket=bucket, band=band, params=p)
         ref = k3.band_dp_dma_raw_ref(data.reads2, data.panel_padded, *vecs,
-                                     bucket=bucket, band=band, params=params)
+                                     bucket=bucket, band=band, params=p)
         compare("k3", tag, got, ref)
         return got
 
@@ -566,9 +622,23 @@ def phase_onepass_kernels(peak_ops: float):
         k4_case(f"bucket={bucket} band={band}", q, t, band)
         data, vecs = make_dma_problems(bucket + 1, 256, bucket, dev, band)
         k3_case(f"bucket={bucket} band={band}", data, vecs, bucket, band)
+        extra = ""
+        if bucket == 2048:
+            # K3's wide build, and m = 0 beside m = bucket in each warp.
+            wide = DPParams(mismatch=-200)
+            k3_case(f"wide mismatch=-200 bucket={bucket} band={band}", data,
+                    vecs, bucket, band, wide)
+            q_start, t_start, m, t_lo, t_hi = vecs
+            alt = torch.where(torch.arange(len(m), device=dev) % 2 == 0, 0,
+                              bucket).to(torch.int32)
+            short_full = (q_start, t_start, alt, t_lo, t_hi)
+            for p in (params, wide):
+                k3_case(f"m 0 beside m {bucket}, mismatch={p.mismatch}, "
+                        f"band={band}", data, short_full, bucket, band, p)
+            extra = "; K3 wide build and m = 0 beside m = bucket exact"
         del data, vecs
         log(f"[onepass] bucket {bucket:5d} band {band} P 256: band_dp_onepass "
-            f"and band_dp_dma exact ({time.perf_counter() - t0:.1f} s)")
+            f"and band_dp_dma exact{extra} ({time.perf_counter() - t0:.1f} s)")
 
     P, bucket = 32768, 2048
     qT, tT, k4_m = make_problems(7, P, bucket, sort_m=True)
@@ -769,22 +839,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="_chip_smoke_", dir=str(ROOT)) as tmp:
         paths, n_reads = simulate_bundle(Path(tmp), mb=10, n_svs=1000, cov=20.0)
-        launches, v3_prefix = phase_main_path(Path(tmp), paths, n_reads)
+        launches, rev_launches, v3_prefix = phase_main_path(
+            Path(tmp), paths, n_reads)
         dma_launches = phase_onepass_path(Path(tmp), paths, n_reads, v3_prefix)
 
     source = "svjedi_tpu_torch/kernels/csrc/band_dp_onepass.cu"
+    v3_source = "svjedi_tpu_torch/kernels/csrc/band_dp_v3.cu"
     print(json.dumps({"kernels": [{
         "name": "band_dp_v3_fwd",
         "route": "cuda",
-        "source": "svjedi_tpu_torch/kernels/csrc/band_dp_v3.cu",
+        "source": v3_source,
         "replaces": "svjedi_tpu/kernels/band_dp_v3.py:53",
-        "launches": launches,
-        "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"],
-        "plain_ms": kern["plain_ms"],
-        "bound_ms": kern["bound_ms"],
-        "bound_by": kern["bound_by"],
+        "launches": launches - rev_launches,
         "library_ms": None,
+        **kern["fwd"],
+    }, {
+        "name": "band_dp_v3_rev",
+        "route": "cuda",
+        "source": v3_source,
+        "replaces": "svjedi_tpu/kernels/band_dp_v3.py:368",
+        "launches": rev_launches,
+        "library_ms": None,
+        **kern["rev"],
     }, {
         "name": "band_dp_dma",
         "route": "cuda",

@@ -298,12 +298,17 @@ def window_score_v3_rev_flat(
     band: int,
     params: DPParams,
 ) -> torch.Tensor:
-    """v3 reverse pass reading its meta block from the flat buffer."""
+    """v3 reverse pass reading its meta block from the flat buffer.
+
+    The meta's m row holds each problem's m' = qe + 1, the rows the
+    end-clamped windows need, and the prep masked every later row to 4, so
+    it is the reverse kernel's exact ``m``."""
     from ..kernels.band_dp_v3 import band_dp_v3_rev
 
     rw, rn, pw, pn = data.packed_words()
-    qT, tT, nv = _prep_v3_flat(rw, rn, pw, pn, flat, off, Ppad, bucket, band)
-    return band_dp_v3_rev(qT, tT, bucket, band, params, nv)
+    nv, meta = _flat_block(flat, off, Ppad)
+    qT, tT = _prep_v3_windows_packed(rw, rn, pw, pn, meta, bucket, band)
+    return band_dp_v3_rev(qT, tT, bucket, band, params, nv, m=meta[1])
 
 
 def window_score_packed_flat(

@@ -679,9 +679,9 @@ def dispatch_rev(
             disp.t_hi[csub],
             disp.t_start[csub].astype(np.int64) + disp.te_win[csub] + 1,
         )
-        # Reverse windows are flipped before the kernel (valid rows at the
-        # end), so row bounds cannot skip their sentinel prefix: run all
-        # rows (rebucketing above already shrank the window).
+        # The reverse kernel takes its rows from each problem's m' (meta
+        # row 1) and reads no row bound; the block keeps the JAX layout,
+        # whose bounds are the whole bucket.
         blocks.append(
             dev.flat_meta_block(
                 meta, P, row_bounds=np.full(Ppad // 128, bucket, np.int32),

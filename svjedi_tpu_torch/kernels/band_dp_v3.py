@@ -8,9 +8,11 @@ functions keep the JAX layout: transposed windows ``qT (bucket, P)`` and
 
 :func:`band_dp_v3_fwd` runs the hand-written CUDA kernel
 (``csrc/band_dp_v3.cu``) on CUDA tensors and :func:`band_dp_v3_fwd_ref`,
-its plain PyTorch version, on CPU tensors; any other device raises. The
-reverse pass is the forward pass on flipped windows (see
-:func:`band_dp_v3_rev`), so it runs the same kernel.
+its plain PyTorch version, on CPU tensors; any other device raises.
+:func:`band_dp_v3_rev` runs the same kernel body's reverse build, which
+reads each end-clamped window backwards from its last valid row and runs
+only the rows the windows need; its plain version,
+:func:`band_dp_v3_rev_ref`, is the forward pass on flipped windows.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ P_STEP = 128
 #: Kernel launches since import (or since a caller reset it to 0). Counted
 #: only where the CUDA kernel is launched, never by the plain version.
 launches = 0
-#: Of those, the launches made by the reverse pass (K1').
+#: Of those, the launches of the reverse kernel (K1').
 rev_launches = 0
 
 
@@ -135,11 +137,13 @@ def band_dp_v3_fwd_ref(
     return out
 
 
-def _launch(qT, tT, prefetch, bucket: int, band: int, params: DPParams):
-    """Launch the kernel (the launcher picks its build from the params)."""
+def _launch(qT, tT, prefetch, bucket: int, band: int, params: DPParams,
+            m=None):
+    """Launch the forward kernel, or with ``m`` the reverse one (the
+    launcher picks the build from the params)."""
     from . import build
 
-    global launches
+    global launches, rev_launches
     if not (qT.is_contiguous() and tT.is_contiguous()):
         raise ValueError("band_dp_v3 kernel needs contiguous qT/tT")
     if band not in (128, 256):
@@ -149,15 +153,25 @@ def _launch(qT, tT, prefetch, bucket: int, band: int, params: DPParams):
     P = qT.shape[1]
     lib = build.load_library()
     out = torch.empty((P, 3), dtype=torch.int32, device=qT.device)
+    args = (P, bucket, band, params.match, params.mismatch,
+            params.open_extend, params.gap_extend)
     with torch.cuda.device(qT.device):
         stream = torch.cuda.current_stream(qT.device).cuda_stream
-        rc = lib.band_dp_v3_fwd_launch(
-            qT.data_ptr(), tT.data_ptr(), prefetch.data_ptr(), out.data_ptr(),
-            P, bucket, band, params.match, params.mismatch,
-            params.open_extend, params.gap_extend, stream,
-        )
-    build.check(lib, rc, "band_dp_v3_fwd kernel launch")
+        if m is None:
+            rc = lib.band_dp_v3_fwd_launch(
+                qT.data_ptr(), tT.data_ptr(), prefetch.data_ptr(),
+                out.data_ptr(), *args, stream,
+            )
+        else:
+            rc = lib.band_dp_v3_rev_launch(
+                qT.data_ptr(), tT.data_ptr(), prefetch.data_ptr(),
+                m.data_ptr(), out.data_ptr(), *args, stream,
+            )
+    what = "band_dp_v3_fwd" if m is None else "band_dp_v3_rev"
+    build.check(lib, rc, f"{what} kernel launch")
     launches += 1
+    if m is not None:
+        rev_launches += 1
     return out
 
 
@@ -182,6 +196,46 @@ def band_dp_v3_fwd(
     return _launch(qT, tT, prefetch, bucket, band, params)
 
 
+def band_dp_v3_rev_ref(
+    qT: torch.Tensor,
+    tT: torch.Tensor,
+    bucket: int,
+    band: int,
+    params: DPParams = DPParams(),
+    n_valid=None,
+    fwd=band_dp_v3_fwd_ref,
+) -> torch.Tensor:
+    """Plain reverse pass: flip both windows, run the forward pass, map back.
+
+    Flipping makes every end-clamped window suffix-aligned; leading sentinel
+    rows cannot score, so the flipped problem's best END is the original's
+    best START. ``fwd`` selects the forward implementation (the plain one by
+    default). Row bounds in ``n_valid`` are not used: they would cut the
+    flipped windows' valid rows, which come last.
+    """
+    _check_shapes(qT, tT, bucket, band)
+    TW = bucket + band
+    qT_r = torch.flip(qT, dims=(0,)).contiguous()
+    # One extra row of flip-shift keeps the band offset k'' = B-1-k inside
+    # [0, band); the wrapped row is never read (i''+k'' <= TW-2).
+    tT_r = torch.roll(torch.flip(tT, dims=(0,)), -1, dims=0).contiguous()
+    n_valid = _prefetch(n_valid, qT.shape[1], bucket, qT.device)[:1]
+    out = fwd(qT_r, tT_r, bucket, band, params, n_valid)
+    score = out[:, 0]
+    qs = (bucket - 1) - out[:, 1]
+    ts = (TW - 2) - out[:, 2]
+    return torch.stack([score, qs, ts], dim=1)
+
+
+def valid_rows(qT: torch.Tensor) -> torch.Tensor:
+    """(P,) int32: 1 + the last row whose read code is not 4 (0 if none).
+
+    Every row after it is sentinel, so this ``m`` is exact for any input."""
+    bucket = qT.shape[0]
+    rows = torch.arange(1, bucket + 1, dtype=torch.int16, device=qT.device)
+    return torch.where(qT != 4, rows[:, None], 0).amax(dim=0).to(torch.int32)
+
+
 def band_dp_v3_rev(
     qT: torch.Tensor,
     tT: torch.Tensor,
@@ -189,29 +243,34 @@ def band_dp_v3_rev(
     band: int,
     params: DPParams = DPParams(),
     n_valid=None,
-    fwd=band_dp_v3_fwd,
+    m=None,
 ) -> torch.Tensor:
     """Reverse pass: per problem (score, qs, ts) — starts of an optimal
-    alignment inside the (already end-clamped) windows.
+    alignment inside the (already end-clamped) windows; (0, bucket,
+    bucket + band - 1) for a problem scoring 0 or at index >= n_valid.
 
-    The caller must have masked qT beyond qe and tT beyond te. Flipping both
-    matrices makes every window suffix-aligned; leading sentinel rows cannot
-    score, so the flipped problem's best END is the original's best START.
-    ``fwd`` selects the forward implementation (the plain one for checks).
+    The caller must have masked qT beyond qe and tT beyond te. CUDA tensors
+    launch the reverse kernel, which reads each window backwards from its
+    row ``m - 1`` with no copy; ``m`` is the (P,) int32 count of valid read
+    rows (``qe + 1``), derived by :func:`valid_rows` when None. CPU tensors
+    take :func:`band_dp_v3_rev_ref`. Row bounds in ``n_valid`` are not used.
     """
-    global rev_launches
-    TW = bucket + band
-    qT_r = torch.flip(qT, dims=(0,)).contiguous()
-    # One extra row of flip-shift keeps the band offset k'' = B-1-k inside
-    # [0, band); the wrapped row is never read (i''+k'' <= TW-2).
-    tT_r = torch.roll(torch.flip(tT, dims=(0,)), -1, dims=0).contiguous()
-    before = launches
-    out = fwd(qT_r, tT_r, bucket, band, params, n_valid)
-    rev_launches += launches - before
-    score = out[:, 0]
-    qs = (bucket - 1) - out[:, 1]
-    ts = (TW - 2) - out[:, 2]
-    return torch.stack([score, qs, ts], dim=1)
+    _check_shapes(qT, tT, bucket, band)
+    if qT.device.type == "cpu":
+        return band_dp_v3_rev_ref(qT, tT, bucket, band, params, n_valid)
+    if qT.device.type != "cuda":
+        raise ValueError(f"band_dp_v3_rev: unsupported device {qT.device}")
+    if max(params.mismatch, params.open_extend, params.gap_extend) > 0:
+        # A sentinel row must leave H at 0 for the rows the kernel skips.
+        raise ValueError(f"band_dp_v3_rev kernel needs mismatch and gap "
+                         f"scores <= 0, got {params}")
+    P = qT.shape[1]
+    if m is None:
+        m = valid_rows(qT)
+    if m.shape != (P,) or m.dtype != torch.int32 or m.device != qT.device:
+        raise ValueError(f"m must be ({P},) int32 on {qT.device}")
+    prefetch = _prefetch(n_valid, P, bucket, qT.device)  # bounds unread
+    return _launch(qT, tT, prefetch, bucket, band, params, m=m.contiguous())
 
 
 def band_dp_v3(
@@ -225,7 +284,9 @@ def band_dp_v3(
     """Two-pass wrapper returning the one-pass ``band_dp_batch`` contract.
 
     Production code runs the passes separately (the reverse pass only on
-    winners); this wrapper exists for tests and checks.
+    winners); this wrapper exists for tests and checks. With the kernel's
+    ``fwd`` the reverse pass is :func:`band_dp_v3_rev` (given m = qe + 1),
+    otherwise :func:`band_dp_v3_rev_ref` over ``fwd``.
     """
     out = fwd(qT, tT, bucket, band, params)
     score, qe, te = out[:, 0], out[:, 1], out[:, 2]
@@ -233,7 +294,10 @@ def band_dp_v3(
     qT2 = torch.where(rows <= qe[None, :], qT, 4).to(torch.int8)
     trows = torch.arange(bucket + band, dtype=torch.int32, device=qT.device)
     tT2 = torch.where(trows[:, None] <= te[None, :], tT, 4).to(torch.int8)
-    rev = band_dp_v3_rev(qT2, tT2, bucket, band, params, fwd=fwd)
+    if fwd is band_dp_v3_fwd:
+        rev = band_dp_v3_rev(qT2, tT2, bucket, band, params, m=qe + 1)
+    else:
+        rev = band_dp_v3_rev_ref(qT2, tT2, bucket, band, params, fwd=fwd)
     return {
         "score": score,
         "qs": rev[:, 1],

@@ -9,7 +9,8 @@ interface (no PyTorch headers, so a build takes seconds), loaded with ctypes:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \
          -o _build/libsvjt_kernels_<hash>.so *.o
 
-The library name carries a hash of the sources and flags, so an edit
+The library name carries a hash of the sources (``*.cu`` and the headers
+they share, ``*.cuh``) and flags, so an edit
 rebuilds and an unchanged tree reuses the library in ``_build/`` (listed in
 ``.gitignore``). A missing ``nvcc`` or a failed build raises with nvcc's
 output; there is no fallback.
@@ -65,7 +66,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsvjt_kernels_{h.hexdigest()[:16]}.so"
@@ -145,6 +146,10 @@ def load_library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.band_dp_v3_fwd_launch.restype = i32
+        lib.band_dp_v3_rev_launch.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.band_dp_v3_rev_launch.restype = i32
         lib.band_dp_onepass_launch.argtypes = [
             ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
         ]

@@ -1,0 +1,73 @@
+// Pieces shared by the banded-DP kernels: constants, the one-prmt
+// substitution and the choice between a kernel's narrow and wide build.
+//
+// The narrow build keeps each target code as a prmt byte selector with sign
+// replication and each read row as a word of four int8 scores (match at the
+// row's code, mismatch elsewhere), so a cell's substitution score is one
+// prmt. The wide build compares the codes and selects the score.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace svjt {
+
+constexpr int kNeg = -(1 << 30);
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kRowMask = (1 << 15) - 1;  // row field of a packed best-cell key
+
+// int32 score of a target code for the row's score word: the selector's
+// byte 0 picks the code's byte of (lo, hi), bytes 1-3 replicate its sign.
+__device__ __forceinline__ int substitution(uint32_t lo, uint32_t hi,
+                                            uint32_t sel) {
+  int r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(lo), "r"(hi), "r"(sel));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t target_selector(int code) {
+  const uint32_t b = (unsigned)code < 8u ? (uint32_t)code : 4u;
+  return b * 0x1111u + 0x8880u;
+}
+
+// Scores of codes 0-3 against read code `code` (codes >= 4 match nothing).
+__device__ __forceinline__ uint32_t row_scores(int code, uint32_t mm4,
+                                               uint32_t flip) {
+  return (unsigned)code < 4u ? mm4 ^ (flip << (8 * code)) : mm4;
+}
+
+// A read row's word and a target code's word: the narrow build's score
+// word and prmt selector, the wide build's codes themselves.
+template <bool kWide>
+__device__ __forceinline__ uint32_t row_word(int code, uint32_t mm4,
+                                             uint32_t flip) {
+  if constexpr (kWide) return (uint32_t)code;
+  else return row_scores(code, mm4, flip);
+}
+
+template <bool kWide>
+__device__ __forceinline__ int target_word(int code) {
+  if constexpr (kWide) return code;
+  else return (int)target_selector(code);
+}
+
+// Score of a row word against a target word (codes >= 4 match nothing).
+template <bool kWide>
+__device__ __forceinline__ int score(uint32_t row, int target, uint32_t mm4,
+                                     int match, int mismatch) {
+  if constexpr (kWide) return row < 4u && (int)row == target ? match : mismatch;
+  else return substitution(row, mm4, (uint32_t)target);
+}
+
+inline bool fits_int8(int v) { return -128 <= v && v < 128; }
+
+// The narrow build needs scores (at most match * bucket) below 2^16 for its
+// packed (score, row) key and match, mismatch in int8 for its prmt words.
+inline bool needs_wide(int match, int mismatch, int bucket) {
+  return (long long)match * bucket >= (1 << 16) || !fits_int8(match) ||
+         !fits_int8(mismatch);
+}
+
+}  // namespace svjt

@@ -19,40 +19,48 @@
 // problem: 8 int32 [score, qs, ts, qe, te = qe + k, 0, 0, 0]; a problem
 // scoring 0 writes [0, 0, 0, -1, -1, 0, 0, 0].
 //
-// The fused-fetch entry masks read rows at or beyond m and target
-// positions outside [t_lo, t_hi) (and outside either buffer) to 4, and runs
-// only min(m, bucket) rows: a row of sentinel reads lies strictly below an
-// earlier cell, so it can neither reach the maximum nor change the picked
-// cell. The pre-gathered entry runs all M rows.
+// Which entry runs which body:
+// - band_dp_dma_kernel (K3, the fused fetch, entry band_dp_dma_launch) runs
+//   its own body, K1's Hopper layout (band_dp_v3.cu) with starts: G lanes x
+//   8 cells per problem (G = 16 at band 128, two problems per warp; 32 at
+//   band 256), the target window as a register ring indexed by row mod 8,
+//   the one-prmt substitution, a packed (score, row) best key beside the
+//   best's start, and read and target bytes loaded a chunk of G rows ahead.
+//   Values take DPX add-max (VIADDMNMX); where a start follows the choice,
+//   the predicate is an equality test of the result against one operand
+//   and the start a select. Inside a lane the horizontal gap is Gotoh's
+//   F[c + 1] = max(F[c] + ext, H[c] + oe); across lanes, each lane's
+//   outgoing gap is packed with its lane index into one int, so a plain
+//   max prefix scan prefers the nearer lane at an equal value, and the
+//   winning lane's start comes with one shuffle. It masks read rows
+//   at or beyond m and target positions outside [t_lo, t_hi) (and outside
+//   either buffer) to 4, and runs the warp's largest min(m, bucket) rows,
+//   rounded up to 8: a row of sentinel reads lies strictly below an earlier
+//   cell, so it can neither reach the maximum nor change the picked cell.
+//   Scores beyond the narrow build's range (needs_wide, or gap scores
+//   outside int8) take its wide build: codes compared, the best's row in a
+//   register, and a (value, lane) pair scan.
+// - band_dp_onepass_kernel (K4, pre-gathered windows, all M rows) runs
+//   onepass_body below: one warp per problem, 4 cells per lane (8 at band
+//   256), a 5-step (value, start) pair scan and 32-row loads.
 //
-// What bounds it on the H100: not memory. A row costs each problem one byte
-// of read and one of target, while its band cells need ~25 integer ops each
-// plus a prefix max across the band, carried as (value, start) pairs; the
-// kernel is bound by integer issue and warp-shuffle latency, one dependent
-// row after another.
-//
-// The design follows band_dp_v3.cu: one warp per problem, each lane holding
-// 4 consecutive band cells (8 at band 256) of H, V, their packed starts,
-// BEST, its start and row, and the sliding target window in registers. The
-// horizontal gap, a log-shift cascade on the TPU, is the exact identity
-// (htmp >= 0)
-//   F[k] = ext*k + max_{j<k} (htmp[j] + oe - ext*(j+1)),
-// a lane-local scan plus a 5-step __shfl_up_sync prefix max over (value,
-// start) pairs in which the nearer source wins a tie. The start therefore
-// rides along without dynamic register indexing, and te needs no register
-// (te = qe + k). Every 32 rows the warp loads the next 32 read bytes and
-// the next 32 incoming target bytes with one coalesced load each and hands
-// them out by shuffle. There is no 1024-byte alignment or lane rotate: that
-// was a Mosaic constraint on the TPU's DMA, which Hopper does not have.
+// What bounds it on the H100: integer issue, not memory. A row costs each
+// problem one byte of read and one of target; each band cell needs 14 int32
+// operations as the bound counts them (K1's 9 plus five selects that carry
+// the start). Times at P = 32768, bucket 2048 on an NVIDIA H100 80GB HBM3
+// at 700 W (chip_smoke.py phase 2b): K3 7.215 ms against its 4.488 ms
+// bound (62.2%; the one-warp, 4-cell body that K4 still runs took 11.446
+// ms for K3); K4 17.794 ms against its 4.493 ms bound (25.3%). ptxas: K3
+// 107 registers (band 128) and 101 (band 256) for the narrow build, 128
+// for the wide one, no spill.
+// There is no 1024-byte alignment or lane rotate: that was a Mosaic
+// constraint on the TPU's DMA, which Hopper does not have.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "band_dp_common.cuh"
 
 namespace {
 
-constexpr int kNeg = -(1 << 30);
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 8;
+using namespace svjt;
 
 // Windows of the pre-gathered entry: one problem's rows of q and t.
 struct Gathered {
@@ -258,7 +266,13 @@ band_dp_onepass_kernel(const int8_t* __restrict__ q,
                   out + 8 * (size_t)p);
 }
 
-template <int C>
+// K3's body: G lanes x C = 8 cells per problem (G = 16 at band 128, two
+// problems per warp; G = 32 at band 256), K1's layout, with each cell's
+// packed start carried beside its value. The narrow build (kWide false)
+// takes the one-prmt substitution, a packed (score, row) best key and a
+// packed (value, lane) key for the cross-lane scan; the wide build compares
+// codes, keeps the best row in a register and scans (value, lane) pairs.
+template <int G, bool kWide>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 band_dp_dma_kernel(const int8_t* __restrict__ reads, long long n_reads,
                    const int8_t* __restrict__ panel, long long n_panel,
@@ -269,19 +283,234 @@ band_dp_dma_kernel(const int8_t* __restrict__ reads, long long n_reads,
                    const int32_t* __restrict__ t_hi,
                    int32_t* __restrict__ out, int P, int bucket, int match,
                    int mismatch, int oe, int ext) {
-  const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (p >= P) return;
-  const int rows = max(0, min(m[p], bucket));
+  constexpr int C = 8;
+  constexpr int B = C * G;
+  constexpr int kGroups = 32 / G;  // problems per warp
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % G;  // lane within the problem's group
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (warp * kGroups >= P) return;
+  const int p = warp * kGroups + lane / G;
+  const bool live = p < P;  // a dead group still takes part in shuffles
+  const int own_rows = live ? max(0, min(m[p], bucket)) : 0;
+  // The warp runs its longest problem's rows, rounded up to C; the other
+  // problem's extra rows read sentinel 4 and cannot reach its maximum.
+  const int rows = ((__reduce_max_sync(kFull, own_rows) + C - 1) / C) * C;
   const Flat src{reads,
                  n_reads,
-                 (long long)q_start[p],
-                 rows,
+                 live ? (long long)q_start[p] : 0LL,
+                 own_rows,
                  panel,
-                 (long long)t_start[p],
-                 max((long long)t_lo[p], 0LL),
-                 min((long long)t_hi[p], n_panel)};
-  onepass_body<C>(src, rows, threadIdx.x & 31, match, mismatch, oe, ext,
-                  out + 8 * (size_t)p);
+                 live ? (long long)t_start[p] : 0LL,
+                 live ? max((long long)t_lo[p], 0LL) : 0LL,
+                 live ? min((long long)t_hi[p], n_panel) : 0LL};
+  const int k0 = gl * C;
+  const uint32_t mm4 = (uint32_t)(mismatch & 0xff) * 0x01010101u;
+  const uint32_t flip = (uint32_t)((match ^ mismatch) & 0xff);
+
+  // H, V and their packed starts SH, SV; KEY: the narrow build's packed
+  // (score, row) best key, the wide build's best score (row in BROW); BS:
+  // the best's start; T: the target window, a ring indexed by row mod C.
+  int H[C], V[C], SH[C], SV[C], KEY[C], BS[C], BROW[kWide ? C : 1], T[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    H[c] = 0;
+    V[c] = kNeg;
+    SH[c] = k0 + c;  // packed (0 << 16) | k
+    SV[c] = k0 + c;
+    KEY[c] = kWide ? 0 : kRowMask;  // score 0: never the reported best
+    BS[c] = 0;
+    if constexpr (kWide) BROW[c] = -1;
+    T[c] = target_word<kWide>(src.t_at(k0 + c));
+  }
+  // Read words of rows [chunk, chunk + G) and target codes entering the
+  // band at those rows (row + B), one of each per lane, a chunk ahead.
+  uint32_t qw = row_word<kWide>(src.q_at(gl), mm4, flip);
+  int tw = target_word<kWide>(src.t_at(B + gl));
+
+  for (int chunk = 0; chunk < rows; chunk += G) {
+    const int nr = chunk + G + gl;
+    const int q_next = src.q_at(nr);
+    const int t_next = src.t_at(nr + B);
+#pragma unroll 1
+    for (int sub = 0; sub < G && chunk + sub < rows; sub += C) {
+#pragma unroll
+      for (int r = 0; r < C; ++r) {
+        const int i = chunk + sub + r;
+        const uint32_t row = __shfl_sync(kFull, qw, sub + r, G);
+        const int t_in = __shfl_sync(kFull, tw, sub + r, G);
+        // Vertical parent of the lane's last cell: the next lane's cell 0,
+        // whose (value, start) that lane makes. Each choice below that a
+        // start follows is a DPX add-max for the value and an equality
+        // test for the predicate: max(a + b, c) == c exactly when c >= a + b.
+        const int open0 = H[0] + oe;
+        const int up0 = __viaddmax_s32(V[0], ext, open0);  // open wins a tie
+        int v_last = __shfl_down_sync(kFull, up0, 1, G);
+        int s_last =
+            __shfl_down_sync(kFull, up0 == open0 ? SH[0] : SV[0], 1, G);
+        if (gl == G - 1) {
+          v_last = kNeg;
+          s_last = 0;
+        }
+        const int reset0 = (i + 1) * 0x10001 + k0;  // ((i+1) << 16) + i+1 + k0
+        // Cell by cell: V, the diagonal (which wins a tie with V), the reset
+        // at <= 0 (into H, SH), and the horizontal gap from the lane's own
+        // cells (xv, xs): F[c + 1] = max(F[c] + ext, H[c] + oe), the open
+        // (nearer) source winning a tie.
+        int xv[C + 1], xs[C + 1];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          if (c + 1 < C) {
+            const int open = H[c + 1] + oe;
+            V[c] = __viaddmax_s32(V[c + 1], ext, open);
+            SV[c] = V[c] == open ? SH[c + 1] : SV[c + 1];
+          } else {
+            V[c] = v_last;
+            SV[c] = s_last;
+          }
+          const int diag =
+              H[c] + score<kWide>(row, T[(c + r) % C], mm4, match, mismatch);
+          const int s1 = diag >= V[c] ? SH[c] : SV[c];
+          H[c] = __vimax_s32_relu(diag, V[c]);
+          SH[c] = H[c] > 0 ? s1 : reset0 + c;
+          const int open = H[c] + oe;
+          if (c == 0) {
+            xv[1] = open;
+          } else {
+            xv[c + 1] = __viaddmax_s32(xv[c], ext, open);
+          }
+          xs[c + 1] = c == 0 || xv[c + 1] == open ? SH[c] : xs[c];
+        }
+        // Exclusive prefix over the group's lanes of the gap each lane
+        // hands on (xv[C], at its cell k0 + C), in the frame of cell 0: the
+        // best source of an earlier lane and its start (a farther lane must
+        // be strictly better), back in this lane's frame; none for lane 0.
+        const int out_v = xv[C] - ext * (k0 + C);
+        int ev, es;
+        if constexpr (!kWide) {
+          // (value, lane) packed so that a plain max prefers the nearer
+          // (higher) lane at an equal value; values stay far inside
+          // int32 / G, since the narrow build has scores < 2^16 and int8
+          // gap scores.
+          int key = out_v * G + gl;
+#pragma unroll
+          for (int off = 1; off < G; off <<= 1)
+            key = max(key, __shfl_up_sync(kFull, key, off, G));
+          const int excl = __shfl_up_sync(kFull, key, 1, G);
+          es = __shfl_sync(kFull, xs[C], excl & (G - 1), G);
+          ev = gl == 0 ? kNeg : (excl >> (G == 16 ? 4 : 5)) + ext * k0;
+        } else {
+          int v = out_v, from = gl;
+#pragma unroll
+          for (int off = 1; off < G; off <<= 1) {
+            const int ov = __shfl_up_sync(kFull, v, off, G);
+            const int of = __shfl_up_sync(kFull, from, off, G);
+            if (ov > v) {
+              v = ov;
+              from = of;
+            }
+          }
+          const int ev_g = __shfl_up_sync(kFull, v, 1, G);
+          es = __shfl_sync(kFull, xs[C], __shfl_up_sync(kFull, from, 1, G), G);
+          ev = gl == 0 ? kNeg : ev_g + ext * k0;
+        }
+        const int row_key = kRowMask - i;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          // H = max(H, own gap, earlier lanes' gap): a gap must be strictly
+          // better than H, and the lane's own sources, being nearer, win a
+          // tie with the earlier lanes'.
+          if (c > 0) {
+            const bool keep = H[c] >= xv[c];
+            H[c] = keep ? H[c] : xv[c];
+            SH[c] = keep ? SH[c] : xs[c];
+          }
+          const int h_own = H[c];
+          H[c] = __viaddmax_s32(ev, ext * c, h_own);
+          SH[c] = H[c] == h_own ? SH[c] : es;
+          // The cell's best: a tie keeps the earlier row.
+          bool p_old;
+          if constexpr (kWide) {
+            KEY[c] = __vibmax_s32(KEY[c], H[c], &p_old);
+            BROW[c] = p_old ? BROW[c] : i;
+          } else {
+            KEY[c] = __vibmax_s32(KEY[c], H[c] * (kRowMask + 1) + row_key,
+                                  &p_old);
+          }
+          BS[c] = p_old ? BS[c] : SH[c];
+        }
+        // Slide the window: the slot of cell 0 takes t[i + k0 + C], the
+        // next lane's cell 0 (the last lane's comes from t_in).
+        const int from_next = __shfl_down_sync(kFull, T[r], 1, G);
+        T[r] = gl == G - 1 ? t_in : from_next;
+      }
+    }
+    qw = row_word<kWide>(q_next, mm4, flip);
+    tw = target_word<kWide>(t_next);
+  }
+
+  int BEST[C], BQE[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if constexpr (kWide) {
+      BEST[c] = KEY[c];
+      BQE[c] = BROW[c];
+    } else {
+      BEST[c] = KEY[c] >> 15;
+      BQE[c] = BEST[c] > 0 ? kRowMask - (KEY[c] & kRowMask) : -1;
+    }
+  }
+  int best = BEST[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c) best = max(best, BEST[c]);
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    best = max(best, __shfl_xor_sync(kFull, best, off, G));
+  int kmin = 1 << 30, qsel = -1, bs = 0;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (BEST[c] == best && k0 + c < kmin) {
+      kmin = k0 + c;
+      qsel = BQE[c];
+      bs = BS[c];
+    }
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) {
+    const int ok = __shfl_xor_sync(kFull, kmin, off, G);
+    const int oq = __shfl_xor_sync(kFull, qsel, off, G);
+    const int os = __shfl_xor_sync(kFull, bs, off, G);
+    if (ok < kmin) {
+      kmin = ok;
+      qsel = oq;
+      bs = os;
+    }
+  }
+  if (gl == 0 && live) {
+    int32_t* o = out + 8 * (size_t)p;
+    o[0] = best;
+    o[1] = bs >> 16;
+    o[2] = bs & 0xFFFF;
+    o[3] = qsel;
+    o[4] = qsel + kmin;
+    o[5] = 0;
+    o[6] = 0;
+    o[7] = 0;
+  }
+}
+
+template <int G, bool kWide>
+int launch_dma(const int8_t* rd, long long n_reads, const int8_t* pn,
+               long long n_panel, const int32_t* qs, const int32_t* ts,
+               const int32_t* mm, const int32_t* lo, const int32_t* hi,
+               int32_t* o, int P, int bucket, int match, int mismatch, int oe,
+               int ext, cudaStream_t s) {
+  constexpr int kPerBlock = kWarpsPerBlock * (32 / G);
+  band_dp_dma_kernel<G, kWide>
+      <<<(P + kPerBlock - 1) / kPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
+          rd, n_reads, pn, n_panel, qs, ts, mm, lo, hi, o, P, bucket, match,
+          mismatch, oe, ext);
+  return static_cast<int>(cudaGetLastError());
 }
 
 dim3 grid_for(int P) {
@@ -324,7 +553,6 @@ extern "C" int band_dp_dma_launch(const void* reads, long long n_reads,
                                   int mismatch, int oe, int ext,
                                   void* stream) {
   if (P <= 0) return 0;
-  const dim3 block(32 * kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* rd = static_cast<const int8_t*>(reads);
   const int8_t* pn = static_cast<const int8_t*>(panel);
@@ -334,19 +562,15 @@ extern "C" int band_dp_dma_launch(const void* reads, long long n_reads,
   const int32_t* lo = static_cast<const int32_t*>(t_lo);
   const int32_t* hi = static_cast<const int32_t*>(t_hi);
   int32_t* o = static_cast<int32_t*>(out);
-  switch (band) {
-    case 128:
-      band_dp_dma_kernel<4><<<grid_for(P), block, 0, s>>>(
-          rd, n_reads, pn, n_panel, qs, ts, mm, lo, hi, o, P, bucket, match,
-          mismatch, oe, ext);
-      break;
-    case 256:
-      band_dp_dma_kernel<8><<<grid_for(P), block, 0, s>>>(
-          rd, n_reads, pn, n_panel, qs, ts, mm, lo, hi, o, P, bucket, match,
-          mismatch, oe, ext);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  // The narrow build also packs (value, lane) into one int for its scan,
+  // which gap scores in int8 keep far inside int32.
+  const bool wide =
+      needs_wide(match, mismatch, bucket) || !fits_int8(oe) || !fits_int8(ext);
+#define SVJT_LAUNCH(G, W)                                                  \
+  launch_dma<G, W>(rd, n_reads, pn, n_panel, qs, ts, mm, lo, hi, o, P,     \
+                   bucket, match, mismatch, oe, ext, s)
+  if (band == 128) return wide ? SVJT_LAUNCH(16, true) : SVJT_LAUNCH(16, false);
+  if (band == 256) return wide ? SVJT_LAUNCH(32, true) : SVJT_LAUNCH(32, false);
+#undef SVJT_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -70,69 +70,40 @@
 // ptxas (-Xptxas -v, sm_90a): 80 registers for the narrow build (both
 // bands), no spills, no stack; the wide build 80 registers with 24-32
 // bytes of stack and spill. chip_smoke.py prints every build's line.
-// The reverse pass (K1') runs this kernel on flipped windows
-// (kernels/band_dp_v3.py: band_dp_v3_rev).
+//
+// The reverse pass (K1', replacing the same Pallas kernel as called by
+// svjedi_tpu/kernels/band_dp_v3.py:band_dp_v3_rev, which flips the
+// windows first) is the kRev build of the same body, entry
+// band_dp_v3_rev_launch. It reads each problem's end-clamped windows
+// backwards from its last valid row (m' = qe + 1 of the forward pass), with
+// no copy, and runs only the warp's largest m' rows, where the flipped
+// windows needed all bucket rows. Its bound is the forward pass's: 9 ops
+// per cell over sum(m') rows. On an H100 80GB HBM3 at 700 W (chip_smoke.py
+// phase 2, P = 32768, bucket 2048, m' = qe + 1) it took 3.656 ms against
+// that 2.887 ms bound (79.0%), where flipping and rolling the windows and
+// running the forward build on all rows took 6.241 ms. ptxas: 63-80
+// registers for the reverse builds, no spill.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "band_dp_common.cuh"
 
 namespace {
 
-constexpr int kNeg = -(1 << 30);
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 8;
-constexpr int kRowMask = (1 << 15) - 1;  // row field of the best-cell key
+using namespace svjt;
 
-// int32 score of a target code for the row's score word: the selector's
-// byte 0 picks the code's byte of (lo, hi), bytes 1-3 replicate its sign.
-__device__ __forceinline__ int substitution(uint32_t lo, uint32_t hi,
-                                            uint32_t sel) {
-  int r;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(lo), "r"(hi), "r"(sel));
-  return r;
-}
-
-__device__ __forceinline__ uint32_t target_selector(int code) {
-  const uint32_t b = (unsigned)code < 8u ? (uint32_t)code : 4u;
-  return b * 0x1111u + 0x8880u;
-}
-
-// Scores of codes 0-3 against read code `code` (codes >= 4 match nothing).
-__device__ __forceinline__ uint32_t row_scores(int code, uint32_t mm4,
-                                               uint32_t flip) {
-  return (unsigned)code < 4u ? mm4 ^ (flip << (8 * code)) : mm4;
-}
-
-// A read row's word and a target code's word: the narrow build's score
-// word and prmt selector, the wide build's codes themselves.
-template <bool kWide>
-__device__ __forceinline__ uint32_t row_word(int code, uint32_t mm4,
-                                             uint32_t flip) {
-  if constexpr (kWide) return (uint32_t)code;
-  else return row_scores(code, mm4, flip);
-}
-
-template <bool kWide>
-__device__ __forceinline__ int target_word(int code) {
-  if constexpr (kWide) return code;
-  else return (int)target_selector(code);
-}
-
-// Score of a row word against a target word (codes >= 4 match nothing).
-template <bool kWide>
-__device__ __forceinline__ int score(uint32_t row, int target, uint32_t mm4,
-                                     int match, int mismatch) {
-  if constexpr (kWide) return row < 4u && (int)row == target ? match : mismatch;
-  else return substitution(row, mm4, (uint32_t)target);
-}
-
-template <int C, int G, bool kWide>
+// kRev: the reverse pass (K1'). Problem p's valid rows are [0, m'), m' =
+// min(m[p], bucket); reversed row r is read row m' - 1 - r and reversed
+// cell k pairs it with target row m' - 1 - r + B - 1 - k. That is the
+// forward pass on the flipped windows (qT flipped, tT flipped and shifted
+// by one row) without the sentinel prefix the flip puts first: those rows
+// leave every cell at H = 0 and V <= oe, the state this loop starts from
+// (V is recomputed before it is read). Rows r >= m' read sentinel 4.
+template <int C, int G, bool kWide, bool kRev>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-band_dp_v3_fwd_kernel(const int8_t* __restrict__ qT,
-                      const int8_t* __restrict__ tT,
-                      const int32_t* __restrict__ prefetch,
-                      int32_t* __restrict__ out, int P, int bucket,
-                      int match, int mismatch, int oe, int ext) {
+band_dp_v3_kernel(const int8_t* __restrict__ qT, const int8_t* __restrict__ tT,
+                  const int32_t* __restrict__ prefetch,
+                  const int32_t* __restrict__ mvec, int32_t* __restrict__ out,
+                  int P, int bucket, int match, int mismatch, int oe,
+                  int ext) {
   constexpr int B = C * G;
   constexpr int kGroups = 32 / G;  // problems per warp
   const int lane = threadIdx.x & 31;
@@ -140,20 +111,46 @@ band_dp_v3_fwd_kernel(const int8_t* __restrict__ qT,
   const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   const int p = warp * kGroups + lane / G;
   const int n_valid = prefetch[0];
+  // A problem scoring 0 or at index >= n_valid: the forward pass's
+  // (0, -1, -1); the reverse pass's (0, bucket, bucket + B - 1), which is
+  // what the flipped forward pass maps -1 to.
+  const int none_q = kRev ? bucket : -1;
+  const int none_t = kRev ? bucket + B - 1 : -1;
   if (warp * kGroups >= n_valid) {  // the whole warp is padding
     if (gl == 0) {
       out[3 * p] = 0;
-      out[3 * p + 1] = -1;
-      out[3 * p + 2] = -1;
+      out[3 * p + 1] = none_q;
+      out[3 * p + 2] = none_t;
     }
     return;
   }
-  // The problems of a warp share one 128-problem group, hence one bound.
-  const int bound = prefetch[1 + (p >> 7)];
-  const int rows = max(0, min(((bound + 7) >> 3) << 3, bucket));
+  const int mrow = kRev ? max(0, min(mvec[p], bucket)) : 0;
+  int rows;
+  if constexpr (kRev) {
+    // The warp runs its longest problem's rows, rounded up to 8 (<= bucket).
+    rows = ((__reduce_max_sync(kFull, mrow) + 7) >> 3) << 3;
+  } else {
+    // The problems of a warp share one 128-problem group, hence one bound.
+    const int bound = prefetch[1 + (p >> 7)];
+    rows = max(0, min(((bound + 7) >> 3) << 3, bucket));
+  }
   const size_t stride = (size_t)P;
   const int8_t* q = qT + p;
   const int8_t* t = tT + p;
+  // Read code of row r and target code at x = row + cell, in the order the
+  // rows and cells are visited (forward, or the flipped order of kRev).
+  auto q_at = [&](int r) -> int {
+    if constexpr (kRev) return r < mrow ? q[(size_t)(mrow - 1 - r) * stride] : 4;
+    else return r < rows ? q[(size_t)r * stride] : 4;
+  };
+  auto t_at = [&](int x) -> int {
+    if constexpr (kRev) {
+      const int j = mrow + B - 2 - x;
+      return j >= 0 ? t[(size_t)j * stride] : 4;
+    } else {
+      return x < rows + B ? t[(size_t)x * stride] : 4;
+    }
+  };
   const int k0 = gl * C;
   const int lane_off = -ext * k0;  // F source bias of cell k0 - that of cell 0
   const uint32_t mm4 = (uint32_t)(mismatch & 0xff) * 0x01010101u;
@@ -168,18 +165,17 @@ band_dp_v3_fwd_kernel(const int8_t* __restrict__ qT,
     V[c] = kNeg;
     KEY[c] = kWide ? 0 : kRowMask;  // score 0: never the reported best
     if constexpr (kWide) BROW[c] = -1;
-    T[c] = target_word<kWide>(t[(size_t)(k0 + c) * stride]);
+    T[c] = target_word<kWide>(t_at(k0 + c));
   }
   // Read scores of rows [chunk, chunk + G) and target codes entering the
   // band at those rows (row + B), one of each per lane of the group.
-  uint32_t qw =
-      row_word<kWide>(gl < rows ? q[(size_t)gl * stride] : 4, mm4, flip);
-  int tw = target_word<kWide>(gl < rows ? t[(size_t)(B + gl) * stride] : 4);
+  uint32_t qw = row_word<kWide>(q_at(gl), mm4, flip);
+  int tw = target_word<kWide>(t_at(B + gl));
 
   for (int chunk = 0; chunk < rows; chunk += G) {
     const int nr = chunk + G + gl;
-    const int q_next = nr < rows ? q[(size_t)nr * stride] : 4;
-    const int t_next = nr < rows ? t[(size_t)(nr + B) * stride] : 4;
+    const int q_next = q_at(nr);
+    const int t_next = t_at(nr + B);
 #pragma unroll 1
     for (int sub = 0; sub < G && chunk + sub < rows; sub += C) {
 #pragma unroll
@@ -275,61 +271,70 @@ band_dp_v3_fwd_kernel(const int8_t* __restrict__ qT,
     }
   }
   if (gl == 0) {
-    const bool valid = p < n_valid;
-    out[3 * p] = valid ? best : 0;
-    out[3 * p + 1] = valid ? qsel : -1;
-    out[3 * p + 2] = valid ? qsel + kmin : -1;
+    const bool scored = p < n_valid && best > 0;
+    // kRev: back to original coordinates, qs = m' - 1 - r*, ts = qs + B - 1 - k*.
+    const int qo = kRev ? mrow - 1 - qsel : qsel;
+    out[3 * p] = p < n_valid ? best : 0;
+    out[3 * p + 1] = scored ? qo : none_q;
+    out[3 * p + 2] = scored ? (kRev ? qo + B - 1 - kmin : qo + kmin) : none_t;
   }
 }
 
-template <int G, bool kWide>
-int launch(const int8_t* q, const int8_t* t, const int32_t* pf, int32_t* o,
-           int P, int bucket, int match, int mismatch, int oe, int ext,
-           cudaStream_t s) {
+template <int G, bool kWide, bool kRev>
+int launch(const int8_t* q, const int8_t* t, const int32_t* pf,
+           const int32_t* m, int32_t* o, int P, int bucket, int match,
+           int mismatch, int oe, int ext, cudaStream_t s) {
   constexpr int kPerBlock = kWarpsPerBlock * (32 / G);
   if (P % kPerBlock != 0) return static_cast<int>(cudaErrorInvalidValue);
-  band_dp_v3_fwd_kernel<8, G, kWide>
+  band_dp_v3_kernel<8, G, kWide, kRev>
       <<<P / kPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
-          q, t, pf, o, P, bucket, match, mismatch, oe, ext);
+          q, t, pf, m, o, P, bucket, match, mismatch, oe, ext);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int G>
-int launch_band(bool wide, const int8_t* q, const int8_t* t,
-                const int32_t* pf, int32_t* o, int P, int bucket, int match,
-                int mismatch, int oe, int ext, cudaStream_t s) {
-  return wide ? launch<G, true>(q, t, pf, o, P, bucket, match, mismatch, oe,
-                                ext, s)
-              : launch<G, false>(q, t, pf, o, P, bucket, match, mismatch, oe,
-                                 ext, s);
-}
-
-bool fits_int8(int v) { return -128 <= v && v < 128; }
-
-}  // namespace
-
-extern "C" int band_dp_v3_fwd_launch(const void* qT, const void* tT,
-                                     const void* prefetch, void* out, int P,
-                                     int bucket, int band, int match,
-                                     int mismatch, int oe, int ext,
-                                     void* stream) {
+// Picks the build (needs_wide) and the band's group width.
+template <bool kRev>
+int launch_any(const void* qT, const void* tT, const void* prefetch,
+               const void* m, void* out, int P, int bucket, int band,
+               int match, int mismatch, int oe, int ext, void* stream) {
   if (P <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* q = static_cast<const int8_t*>(qT);
   const int8_t* t = static_cast<const int8_t*>(tT);
   const int32_t* pf = static_cast<const int32_t*>(prefetch);
+  const int32_t* mv = static_cast<const int32_t*>(m);
   int32_t* o = static_cast<int32_t*>(out);
-  // The narrow build needs scores (at most match * bucket) below 2^16 for
-  // its packed key and match, mismatch in int8 for its prmt words.
-  const bool wide = (long long)match * bucket >= (1 << 16) ||
-                    !fits_int8(match) || !fits_int8(mismatch);
-  if (band == 128)
-    return launch_band<16>(wide, q, t, pf, o, P, bucket, match, mismatch, oe,
-                           ext, s);
-  if (band == 256)
-    return launch_band<32>(wide, q, t, pf, o, P, bucket, match, mismatch, oe,
-                           ext, s);
+  const bool wide = needs_wide(match, mismatch, bucket);
+#define SVJT_LAUNCH(G, W) \
+  launch<G, W, kRev>(q, t, pf, mv, o, P, bucket, match, mismatch, oe, ext, s)
+  if (band == 128) return wide ? SVJT_LAUNCH(16, true) : SVJT_LAUNCH(16, false);
+  if (band == 256) return wide ? SVJT_LAUNCH(32, true) : SVJT_LAUNCH(32, false);
+#undef SVJT_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// Forward pass: prefetch = [n_valid] ++ one row bound per 128 problems.
+extern "C" int band_dp_v3_fwd_launch(const void* qT, const void* tT,
+                                     const void* prefetch, void* out, int P,
+                                     int bucket, int band, int match,
+                                     int mismatch, int oe, int ext,
+                                     void* stream) {
+  return launch_any<false>(qT, tT, prefetch, nullptr, out, P, bucket, band,
+                           match, mismatch, oe, ext, stream);
+}
+
+// Reverse pass (K1'): prefetch[0] = n_valid (row bounds are not read), m =
+// (P,) int32 valid rows per problem (qe + 1 of the forward pass).
+extern "C" int band_dp_v3_rev_launch(const void* qT, const void* tT,
+                                     const void* prefetch, const void* m,
+                                     void* out, int P, int bucket, int band,
+                                     int match, int mismatch, int oe, int ext,
+                                     void* stream) {
+  if (m == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_any<true>(qT, tT, prefetch, m, out, P, bucket, band, match,
+                          mismatch, oe, ext, stream);
 }
 
 extern "C" const char* svjt_cuda_error_string(int code) {

@@ -284,6 +284,38 @@ def test_chunk_spans_are_optimal(bundle, chunk):
     assert same.mean() >= 0.9
 
 
+def test_rev_m_is_the_last_valid_row_of_the_masked_windows(bundle, chunk,
+                                                           monkeypatch):
+    """The reverse pass's m (meta row 1, qe_win + 1) equals the m derived
+    from the windows ``_prep_v3_windows_packed`` masked, so the reverse
+    kernel runs exactly the rows the windows hold."""
+    from svjedi_tpu_torch.kernels.band_dp_v3 import valid_rows
+
+    reads, index, cfg = _t(bundle, "reads", "index", "cfg")
+    _, _, _, tdisp, trows = chunk
+    tw, twi = tpipe.finalize_chunk(reads, index, cfg, tdisp, trows)
+    seen = []
+    score_rev = tdev.window_score_v3_rev_flat
+
+    def spy(data, flat, off, Ppad, bucket, band, params):
+        nv, meta = tdev._flat_block(flat, off, Ppad)
+        qT, _ = tdev._prep_v3_windows_packed(*data.packed_words(), meta,
+                                             bucket, band)
+        seen.append((valid_rows(qT), meta[1].clone(), int(nv[0])))
+        return score_rev(data, flat, off, Ppad, bucket, band, params)
+
+    monkeypatch.setattr(tdev, "window_score_v3_rev_flat", spy)
+    n_batches = len(tdisp.rev_batches)
+    try:
+        tpipe.dispatch_rev(cfg, tdisp, tw, twi)
+    finally:
+        del tdisp.rev_batches[n_batches:]  # the chunk fixture is shared
+    assert seen
+    for derived, m, n_valid in seen:
+        np.testing.assert_array_equal(derived.numpy(), m.numpy())
+        assert (m[:n_valid] > 0).all() and not m[n_valid:].any()
+
+
 def test_resolve_engine_follows_the_jax_rule():
     assert tpipe.resolve_engine(None, CPU) == "gather"
     assert tpipe.resolve_engine(None, torch.device("cuda:0")) == "v3"

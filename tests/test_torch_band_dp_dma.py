@@ -103,6 +103,31 @@ def test_plain_matches_jax_interpret(bucket, band, P):
         assert tuple(int(got[k][p]) for k in KEYS) == (0, 0, 0, -1, -1)
 
 
+def _short_beside_full(vecs, bucket):
+    """m = 0 and m = bucket alternating: neighbours share a warp in the
+    kernel (two problems per warp at band 128)."""
+    q_start, t_start, m, t_lo, t_hi = vecs
+    m = np.where(np.arange(len(m)) % 2 == 0, 0, bucket).astype(np.int32)
+    return q_start, t_start, m, t_lo, t_hi
+
+
+@pytest.mark.parametrize("bucket, band", [(128, 128), (128, 256)])
+def test_plain_matches_jax_short_beside_full(bucket, band):
+    """Problems with m = 0 beside problems with m = bucket."""
+    P = 8
+    jd, td, vecs = layout(bucket + 2 * band, P, bucket, band)
+    vecs = _short_beside_full(vecs, bucket)
+    ref = jax_band_dp_dma(jd.reads2, jd.panel_padded, *vecs, bucket=bucket,
+                          band=band, params=JaxDPParams(), interpret=True)
+    got = _port(td, vecs, bucket, band)
+    for key in KEYS:
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]),
+                                      err_msg=key)
+    for p in range(0, P, 2):
+        assert tuple(int(got[k][p]) for k in KEYS) == (0, 0, 0, -1, -1)
+    assert (got["score"][1::2] > 0).all()
+
+
 def test_raw_is_onepass_on_gathered_windows():
     """(P, 8) raw layout, and the fused fetch equals the byte gather plus
     the pre-gathered DP on all five columns."""
@@ -151,4 +176,26 @@ def test_cuda_kernel_matches_plain_version(cuda_device, band):
                                  bucket=bucket, band=band)
     torch.cuda.synchronize()
     assert k3.launches == launches + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [128, 256])
+@pytest.mark.parametrize("scores", [{}, dict(mismatch=-200)],
+                         ids=["narrow", "wide"])
+def test_cuda_kernel_short_beside_full_matches_plain_version(cuda_device,
+                                                            band, scores):
+    """Both builds at both bands, with m = 0 beside m = bucket in a warp."""
+    from svjedi_tpu_torch.align.extend import DPParams
+
+    bucket, P = 512, 64
+    _, td, vecs = layout(43, P, bucket, band, device=cuda_device)
+    T = [torch.from_numpy(v).to(cuda_device)
+         for v in _short_beside_full(vecs, bucket)]
+    params = DPParams(**scores)
+    got = k3.band_dp_dma_raw(td.reads2, td.panel_padded, *T, bucket=bucket,
+                             band=band, params=params)
+    ref = k3.band_dp_dma_raw_ref(td.reads2, td.panel_padded, *T,
+                                 bucket=bucket, band=band, params=params)
+    torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())

@@ -33,16 +33,20 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
-def _problems(seed: int, bucket: int, P: int = P):
+def _problems(seed: int, bucket: int, P: int = P, band: int = BAND,
+              m_fix=None):
     """Read windows and noisy copies placed at random band offsets, plus
     edge cases: an all-sentinel read, an all-sentinel target, interior N
-    bases and a problem that cannot score."""
+    bases and a problem that cannot score. ``m_fix`` sets chosen problems'
+    read lengths."""
     rng = np.random.default_rng(seed)
     q = rng.integers(0, 4, size=(P, bucket)).astype(np.int8)
     m = rng.integers(bucket // 4, bucket + 1, size=P)
-    t = np.full((P, bucket + BAND), 4, dtype=np.int8)
+    for p, mp in (m_fix or {}).items():
+        m[p] = mp
+    t = np.full((P, bucket + band), 4, dtype=np.int8)
     for p in range(P):
-        off = int(rng.integers(0, BAND))
+        off = int(rng.integers(0, band))
         copy = q[p].copy()
         flips = rng.random(bucket) < 0.1
         copy[flips] = rng.integers(0, 4, size=int(flips.sum()))
@@ -156,6 +160,69 @@ def test_rev_matches_jax():
     np.testing.assert_array_equal(got[:150, 0], fwd[:150, 0])
 
 
+REV_P = 128
+REV_N_VALID = 100
+
+
+def _rev_windows(seed: int, bucket: int):
+    """End-clamped windows as the pipeline's reverse pass gets them, and the
+    forward pass's qe + 1. Problem 4 is a 40-base read beside problem 5, a
+    full-bucket one, so neighbouring m' differ by more than 1000 at the
+    buckets used here; problems 0-2 are the edge cases of _problems."""
+    q, t = _problems(seed, bucket, P=REV_P, m_fix={4: 40, 5: bucket})
+    qT, tT = q.T.copy(), t.T.copy()
+    fwd = _jax_fwd(qT, tT, bucket)
+    rows = np.arange(bucket)[:, None]
+    qT2 = np.where(rows <= fwd[None, :, 1], qT, 4).astype(np.int8)
+    trows = np.arange(bucket + BAND)[:, None]
+    tT2 = np.where(trows <= fwd[None, :, 2], tT, 4).astype(np.int8)
+    return qT2, tT2, (fwd[:, 1] + 1).astype(np.int32)
+
+
+def _rev_by_addressing(qT2, tT2, m, bucket, n_valid):
+    """The reverse kernel's addressing in numpy: reversed row r reads row
+    m - 1 - r and reversed cell k target row m - 1 - r + BAND - 1 - k (both
+    sentinel below 0); the plain forward pass on those windows, mapped back
+    to qs = m - 1 - r*, ts = qs + BAND - 1 - k*."""
+    cols = np.arange(qT2.shape[1])[None, :]
+    qi = m[None, :] - 1 - np.arange(bucket)[:, None]
+    qR = np.where(qi >= 0, qT2[qi.clip(0), cols], 4).astype(np.int8)
+    ti = m[None, :] + BAND - 2 - np.arange(bucket + BAND)[:, None]
+    tR = np.where(ti >= 0, tT2[ti.clip(0), cols], 4).astype(np.int8)
+    out = v3.band_dp_v3_fwd_ref(torch.from_numpy(qR), torch.from_numpy(tR),
+                                bucket, BAND, DPParams(), n_valid).numpy()
+    scored = out[:, 1] >= 0
+    qs = m - 1 - out[:, 1]
+    ts = qs + BAND - 1 - (out[:, 2] - out[:, 1])
+    return np.stack([out[:, 0], np.where(scored, qs, bucket),
+                     np.where(scored, ts, bucket + BAND - 1)], axis=1)
+
+
+@pytest.mark.parametrize("bucket", [1152, 2048])
+def test_rev_with_m_matches_jax(bucket):
+    """band_dp_v3_rev with an explicit m = qe + 1 and with the derived m
+    equals the JAX reverse pass, n_valid < P; the reverse kernel's backward
+    addressing (numpy model) gives the same rows."""
+    qT2, tT2, m = _rev_windows(bucket + 1, bucket)
+    assert m[5] - m[4] > 1000
+    ref = np.asarray(jax_v3.band_dp_v3_rev(
+        jnp.asarray(qT2), jnp.asarray(tT2), bucket, BAND, JaxDPParams(),
+        n_valid=REV_N_VALID, interpret=True,
+    ))
+    np.testing.assert_array_equal(v3.valid_rows(torch.from_numpy(qT2)).numpy(), m)
+    args = (torch.from_numpy(qT2), torch.from_numpy(tT2), bucket, BAND,
+            DPParams(), REV_N_VALID)
+    none = (0, bucket, bucket + BAND - 1)
+    for m_arg in (torch.from_numpy(m), None):
+        got = v3.band_dp_v3_rev(*args, m=m_arg).numpy()
+        np.testing.assert_array_equal(got[:REV_N_VALID], ref[:REV_N_VALID])
+        assert (got[REV_N_VALID:] == np.array(none)).all()
+        for p in (0, 1, 2):  # all-sentinel read or target, all mismatches
+            assert tuple(got[p]) == none
+    model = _rev_by_addressing(qT2, tT2, m, bucket, REV_N_VALID)
+    np.testing.assert_array_equal(model, got)
+
+
 def test_two_pass_against_one_pass_reference():
     """Scores equal band_dp_batch; a differing span must still be optimal."""
     from _span_check import assert_spans_optimal
@@ -219,3 +286,33 @@ def test_cuda_kernel_wide_build_matches_plain_version(cuda_device, scores):
     ref = v3.band_dp_v3_fwd_ref(qT, tT, bucket, BAND, params)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "band, scores", [(128, {}), (128, dict(mismatch=-200)), (256, {}),
+                     (256, dict(match=200))],
+    ids=["narrow", "wide", "band256", "band256-wide"],
+)
+def test_cuda_rev_kernel_matches_plain_version(cuda_device, band, scores):
+    """The reverse kernel (explicit and derived m) against the flipped
+    forward pass, narrow and wide builds, at both bands."""
+    bucket = 1152
+    q, t = _problems(31, bucket, P=REV_P, band=band, m_fix={4: 40, 5: bucket})
+    params = DPParams(**scores)
+    qT = torch.from_numpy(q.T.copy()).to(cuda_device)
+    tT = torch.from_numpy(t.T.copy()).to(cuda_device)
+    fwd = v3.band_dp_v3_fwd_ref(qT, tT, bucket, band, params)
+    qe, te = fwd[:, 1], fwd[:, 2]
+    rows = torch.arange(bucket, device=cuda_device)[:, None]
+    qT2 = torch.where(rows <= qe[None], qT, 4).to(torch.int8)
+    trows = torch.arange(bucket + band, device=cuda_device)[:, None]
+    tT2 = torch.where(trows <= te[None], tT, 4).to(torch.int8)
+    ref = v3.band_dp_v3_rev_ref(qT2, tT2, bucket, band, params, REV_N_VALID)
+    launches, rev = v3.launches, v3.rev_launches
+    for m in (qe + 1, None):
+        got = v3.band_dp_v3_rev(qT2, tT2, bucket, band, params, REV_N_VALID,
+                                m=m)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+    assert v3.rev_launches == rev + 2 and v3.launches == launches + 2
