@@ -11,8 +11,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    host library (``svjedi_tpu_torch/native/fastio.cpp``) and the CUDA
    kernels (``svjedi_tpu_torch/kernels/csrc``), prints ptxas's registers and
    spills for each build (or that the library was cached) and the DPX
-   instructions in the SASS of K1/K1' (8 builds), K3 (4) and K4 (2); fails
-   if a K1/K1' build or a narrow K3 build has no DPX add-max (VIADDMNMX).
+   instructions in the SASS of K1/K1' (8 builds), K3 (4) and K4 (4); fails
+   if a K1/K1' build or a narrow K3 or K4 build has no DPX add-max
+   (VIADDMNMX).
 2. Kernel vs plain: the band_dp_v3 kernel (K1) against its plain PyTorch
    version on the same CUDA tensors, exactly, at every bucket of
    ``AlignConfig.buckets`` with band 128 and at bucket 2048 with band 256
@@ -23,7 +24,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    those cases, on raw windows (derived m, n_valid < P) and on end-clamped
    windows (m = qe + 1 and derived m); both kernels' wide build (scores
    that match x bucket or int8 cannot hold) at bucket 30720 and at band
-   256. At P = 32768, bucket 2048 times K1, K1' alone, the flipped-window
+   256; K1's forward kernel at mismatch 100, whose scores pass 2^16 (wide
+   build). At P = 32768, bucket 2048 times K1, K1' alone, the flipped-window
    reverse pass it replaced (flip + roll + the forward kernel) and the
    plain versions, with Gcell/s, the bound and the share of the bound.
 2b. One-pass kernels vs plain, exactly, at every bucket with band 128 and
@@ -31,9 +33,14 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    (``band_dp_onepass``, the same edge cases) and the fused-fetch entry
    (``band_dp_dma_raw``) on real upload buffers (forward and reverse-strand
    windows, windows crossing the path bounds, m < bucket, padding rows with
-   m = 0; at bucket 2048 also K3's wide build and m = 0 beside m = bucket
-   in each warp); both at P = 32768, bucket 2048, timed against their
-   plain versions and their bounds.
+   m = 0); at bucket 2048 also both with a zero gap open (gap_open 2,
+   gap_extend -2, where trailing sentinel rows can move the result, so
+   every row runs), both wide builds (mismatch -200, and mismatch 100,
+   whose scores pass 2^16), K3 with m = 0 beside m = bucket, K4 with an
+   all-sentinel read row beside a full one in each warp, and K4's byte row
+   scan (M = 2056; q at an 8-byte offset); both at P = 32768, bucket 2048,
+   timed against their plain
+   versions and their bounds.
 2c. Pre-gathered path: the windows of phase 2b's production batch fetched
    on the card (``gather_windows``) and scored by ``band_dp_onepass``; the
    result must equal the fused-fetch kernel's on the same problems.
@@ -104,12 +111,12 @@ OPS_PER_CELL = {"k1": 9, "onepass": 14}
 DPX_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX")
 #: (kernel name in the SASS, number of builds, regex of the builds that must
 #: use VIADDMNMX). K1 and K1': forward and reverse x narrow and wide x band
-#: 128 and 256; K3: narrow and wide x band 128 and 256, the narrow builds
-#: (template flag kWide = false, mangled "Lb0E") checked; K4: two bands.
+#: 128 and 256; K3 and K4: narrow and wide x band 128 and 256, the narrow
+#: builds (template flag kWide = false, mangled "Lb0E") checked.
 DPX_CHECKS = (
     ("band_dp_v3_kernel", 8, r"."),
     ("band_dp_dma_kernel", 4, r"band_dp_dma_kernelILi\d+ELb0E"),
-    ("band_dp_onepass_kernel", 2, r"^$"),
+    ("band_dp_onepass_kernel", 4, r"band_dp_onepass_kernelILi\d+ELb0E"),
 )
 
 
@@ -160,8 +167,8 @@ def phase_device():
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 log(f"[build] ptxas {src}: {line.strip()}")
-    # Every K1 / K1' build must use DPX add-max, and so must K3's narrow
-    # builds (kWide false); K3's wide builds and K4 are printed only.
+    # Every K1 / K1' build must use DPX add-max, and so must the narrow
+    # builds (kWide false) of K3 and K4; their wide builds are printed only.
     for kernel, n_builds, must in DPX_CHECKS:
         found = dpx_in_sass(build.library_path(), kernel)
         for fn, ops in found.items():
@@ -360,6 +367,18 @@ def phase_kernel(peak_ops: float):
         log(f"[kernel] wide build, match {wide.match} mismatch "
             f"{wide.mismatch}, bucket {bucket:5d} band {band} P {P}: fwd, "
             f"bounded fwd, rev kernel exact ({time.perf_counter() - t0:.1f} s)")
+
+    # A positive mismatch (mismatch 100 at bucket 2048): scores pass 2^16
+    # though match x bucket does not, so the wide build must run. Forward
+    # only: the reverse kernel refuses positive scores.
+    pos = DPParams(mismatch=100)
+    for band in (BAND, 256):
+        qT, tT, _ = make_problems(2051, 256, 2048, sort_m=True, band=band)
+        qT, tT = torch.from_numpy(qT).to(dev), torch.from_numpy(tT).to(dev)
+        out = fwd_case(f"mismatch=100 bucket=2048 band={band}", qT, tT, 2048,
+                       None, band, pos)
+        log(f"[kernel] mismatch 100, bucket 2048 band {band} P 256: fwd exact "
+            f"(best score {int(out[:, 0].max())})")
 
     # Production-shaped batch: P = 32768 at bucket 2048, m-sorted windows.
     P, bucket = 32768, 2048
@@ -583,6 +602,9 @@ def phase_onepass_kernels(peak_ops: float):
 
     dev = torch.device("cuda:0")
     params = DPParams()
+    oe0 = DPParams(gap_open=2, gap_extend=-2)  # open + extend = 0
+    wide = DPParams(mismatch=-200)
+    pos = DPParams(mismatch=100)  # scores past 2^16: the wide build
     err = {"k3": 0, "k4": 0}
     n_cases = 0
 
@@ -596,9 +618,9 @@ def phase_onepass_kernels(peak_ops: float):
             fail(f"{which} kernel disagrees with the plain version: {what} "
                  f"(max abs err {e})")
 
-    def k4_case(tag, q, t, band=BAND):
-        got = k4.band_dp_onepass(q, t, band, params)
-        ref = k4.band_dp_onepass_ref(q, t, band, params)
+    def k4_case(tag, q, t, band=BAND, p=params):
+        got = k4.band_dp_onepass(q, t, band, p)
+        ref = k4.band_dp_onepass_ref(q, t, band, p)
         for key in got:
             compare("k4", f"{key} {tag}", got[key], ref[key])
 
@@ -624,24 +646,46 @@ def phase_onepass_kernels(peak_ops: float):
         k3_case(f"bucket={bucket} band={band}", data, vecs, bucket, band)
         extra = ""
         if bucket == 2048:
-            # K3's wide build, and m = 0 beside m = bucket in each warp.
-            wide = DPParams(mismatch=-200)
-            k3_case(f"wide mismatch=-200 bucket={bucket} band={band}", data,
-                    vecs, bucket, band, wide)
+            # A zero gap open (every row runs), both wide builds (a
+            # mismatch outside int8; a positive mismatch whose scores pass
+            # 2^16), and in each warp m = 0 beside m = bucket (K3) or an
+            # all-sentinel read row beside a full one (K4).
+            for p in (oe0, wide, pos):
+                tag = f"{p} bucket={bucket} band={band}"
+                k3_case(tag, data, vecs, bucket, band, p)
+                k4_case(tag, q, t, band, p)
+            # K4's row scan byte by byte: rows of 2056 bytes (a multiple
+            # of 8, not of 16), and q at an 8-byte storage offset.
+            q8T, t8T, _ = make_problems(bucket + 2, 256, bucket + 8,
+                                        sort_m=True, band=band)
+            q8 = torch.from_numpy(q8T.T.copy()).to(dev)
+            q8[0::2] = 4
+            k4_case(f"M={bucket + 8} band={band}", q8,
+                    torch.from_numpy(t8T.T.copy()).to(dev), band)
+            q_off = torch.empty(q.numel() + 8, dtype=torch.int8,
+                                device=dev)[8:].view(q.shape)
+            q_off.copy_(q)
+            k4_case(f"q at an 8-byte offset, band={band}", q_off, t, band)
             q_start, t_start, m, t_lo, t_hi = vecs
-            alt = torch.where(torch.arange(len(m), device=dev) % 2 == 0, 0,
-                              bucket).to(torch.int32)
+            even = torch.arange(len(m), device=dev) % 2 == 0
+            alt = torch.where(even, 0, bucket).to(torch.int32)
             short_full = (q_start, t_start, alt, t_lo, t_hi)
-            for p in (params, wide):
-                k3_case(f"m 0 beside m {bucket}, mismatch={p.mismatch}, "
-                        f"band={band}", data, short_full, bucket, band, p)
-            extra = "; K3 wide build and m = 0 beside m = bucket exact"
+            q_alt = torch.where(even[:, None], 4,
+                                torch.where(q == 4, 0, q)).to(torch.int8)
+            for p in (params, oe0, wide):
+                k3_case(f"m 0 beside m {bucket}, {p}, band={band}", data,
+                        short_full, bucket, band, p)
+                k4_case(f"all-sentinel row beside a full row, {p}, "
+                        f"band={band}", q_alt, t, band, p)
+            extra = ("; both with a zero gap open, in both wide builds and "
+                     "with an empty problem beside a full one, K4's byte "
+                     "row scan exact")
         del data, vecs
         log(f"[onepass] bucket {bucket:5d} band {band} P 256: band_dp_onepass "
             f"and band_dp_dma exact{extra} ({time.perf_counter() - t0:.1f} s)")
 
     P, bucket = 32768, 2048
-    qT, tT, k4_m = make_problems(7, P, bucket, sort_m=True)
+    qT, tT, _ = make_problems(7, P, bucket, sort_m=True)
     q = torch.from_numpy(qT.T.copy()).to(dev)
     t = torch.from_numpy(tT.T.copy()).to(dev)
     k4_case("P=32768 bucket=2048", q, t)
@@ -664,10 +708,13 @@ def phase_onepass_kernels(peak_ops: float):
         ms = cuda_time_ms(kern, reps=10)
         plain_ms = cuda_time_ms(plain, reps=1)
         times[name] = (ms, plain_ms)
-    # Bounds: the rows each problem needs (K3's m; K4's windows are
-    # sentinel beyond their m), each input byte once, 32 bytes out each.
+    # Bounds: the rows each problem needs (K3's m; K4's rows up to its last
+    # read code other than the sentinel), each input byte once, 32 bytes
+    # out each.
     k3_m = np.minimum(vecs[2].cpu().numpy().astype(np.int64), bucket)
-    need = {"k4": np.minimum(k4_m, bucket), "k3": k3_m}
+    coded = qT[::-1] != 4
+    k4_rows = np.where(coded.any(axis=0), bucket - coded.argmax(axis=0), 0)
+    need = {"k4": k4_rows.astype(np.int64), "k3": k3_m}
     bounds = {}
     for name in ("k4", "k3"):
         ms, plain_ms = times[name]

@@ -2,7 +2,8 @@
 
 PyTorch counterpart of ``svjedi_tpu/kernels/band_dp.py`` (``band_dp_pallas``).
 Inputs keep the JAX layout: read windows ``q (P, M)`` and target windows
-``t (P, M + band)``, int8 with sentinel 4; every one of the ``M`` rows runs.
+``t (P, M + band)``, int8 with sentinel 4; the result is that of running
+every one of the ``M`` rows, as the plain version does.
 
 The contract is the TPU kernel's, which differs from ``band_dp_batch`` on
 ties: each band cell keeps the first row at which it reaches its best
@@ -15,6 +16,10 @@ and ``M + band < 65536``. A problem scoring 0 reports ``[0, 0, 0, -1, -1]``.
 tensors and takes :func:`band_dp_onepass_ref`, its plain PyTorch version, on
 CPU tensors; any other device raises. The fused-fetch variant
 (``kernels/band_dp_dma.py``) runs the same DP body.
+
+Trailing sentinel rows. The one-pass kernels skip a problem's rows past its
+last read code other than 4 (K3: past ``m``) only where
+:func:`rows_skip_exact` holds; otherwise every row runs.
 """
 
 from __future__ import annotations
@@ -43,6 +48,23 @@ def check_packing(rows: int, band: int) -> None:
 def check_kernel_band(band: int) -> None:
     if band not in (128, 256):
         raise ValueError(f"one-pass kernel supports band 128 or 256, got {band}")
+
+
+def check_kernel_rows(rows: int) -> None:
+    """The kernels run rows in blocks of 8 (the JAX kernels take multiples
+    of 128)."""
+    if rows % 8:
+        raise ValueError(
+            f"one-pass kernel needs a multiple of 8 rows, got {rows}")
+
+
+def rows_skip_exact(params: DPParams) -> bool:
+    """Whether trailing sentinel read rows cannot change the result, so the
+    one-pass kernels may skip them: ``rows_skip_exact`` in
+    ``csrc/band_dp_common.cuh``, which the launchers evaluate and whose
+    comment says why."""
+    return (params.mismatch <= 0 and params.open_extend < 0
+            and params.gap_extend <= 0)
 
 
 def onepass_plain(
@@ -91,9 +113,10 @@ def _launch(q: torch.Tensor, t: torch.Tensor, band: int, params: DPParams):
 
     global launches
     check_kernel_band(band)
+    P, M = q.shape
+    check_kernel_rows(M)
     if not (q.is_contiguous() and t.is_contiguous()):
         raise ValueError("one-pass kernel needs contiguous q/t")
-    P, M = q.shape
     lib = build.load_library()
     out = torch.empty((P, 8), dtype=torch.int32, device=q.device)
     with torch.cuda.device(q.device):

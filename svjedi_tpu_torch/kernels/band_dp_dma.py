@@ -10,7 +10,9 @@ window's lane-0 position ``t_start`` and the path's absolute bounds
 i]`` (sentinel 4 at ``i >= m``) against ``panel_padded[t_start + i + k]``
 (sentinel 4 outside ``[t_lo, t_hi)``), with the DP and tie rule of
 ``kernels/band_dp.py``. Bytes outside a buffer read as 4; the upload's
-padding keeps every real window inside.
+padding keeps every real window inside. The kernel skips rows past ``m``
+only where ``kernels/band_dp.py:rows_skip_exact`` holds; otherwise it runs
+all ``bucket`` rows, as the plain version does.
 
 :func:`band_dp_dma_raw` launches the hand-written CUDA kernel
 (``csrc/band_dp_onepass.cu``, entry ``band_dp_dma_launch``) on CUDA tensors
@@ -26,7 +28,8 @@ import torch
 
 from ..align.device import OUT_COLS, gather_windows
 from ..align.extend import DPParams
-from .band_dp import check_kernel_band, check_packing, onepass_plain
+from .band_dp import (check_kernel_band, check_kernel_rows, check_packing,
+                      onepass_plain)
 
 #: Kernel launches since import (or since a caller reset it to 0). Counted
 #: only where the CUDA kernel is launched, never by the plain version.
@@ -73,6 +76,7 @@ def _launch(reads2, panel_padded, vecs, bucket: int, band: int,
 
     global launches
     check_kernel_band(band)
+    check_kernel_rows(bucket)
     if not all(x.is_contiguous() for x in (reads2, panel_padded, *vecs)):
         raise ValueError("band_dp_dma kernel needs contiguous inputs")
     q_start, t_start, m, t_lo, t_hi = vecs

@@ -1,5 +1,6 @@
 // Pieces shared by the banded-DP kernels: constants, the one-prmt
-// substitution and the choice between a kernel's narrow and wide build.
+// substitution, the choice between a kernel's narrow and wide build, and
+// when the one-pass kernels may skip trailing sentinel rows.
 //
 // The narrow build keeps each target code as a prmt byte selector with sign
 // replication and each read row as a word of four int8 scores (match at the
@@ -63,11 +64,35 @@ __device__ __forceinline__ int score(uint32_t row, int target, uint32_t mm4,
 
 inline bool fits_int8(int v) { return -128 <= v && v < 128; }
 
-// The narrow build needs scores (at most match * bucket) below 2^16 for its
-// packed (score, row) key and match, mismatch in int8 for its prmt words.
-inline bool needs_wide(int match, int mismatch, int bucket) {
-  return (long long)match * bucket >= (1 << 16) || !fits_int8(match) ||
-         !fits_int8(mismatch);
+// Largest score a path over `rows` rows of a `band`-wide band can reach.
+// Where mismatch and gap scores are not positive, only matches add, at most
+// one per row. Otherwise every step may add the largest score: a path
+// takes one diagonal or vertical step per row, and at most band + rows
+// horizontal ones (each vertical step moves it one band offset back).
+inline long long max_score(int match, int mismatch, int oe, int ext, int rows,
+                           int band) {
+  if (mismatch <= 0 && oe <= 0 && ext <= 0)
+    return (long long)(match > 0 ? match : 0) * rows;
+  const int step = match > mismatch ? match : mismatch;
+  const int gap = oe > ext ? oe : ext;
+  return (long long)(step > gap ? step : gap) * (2LL * rows + band);
+}
+
+// The narrow build needs scores below 2^16 for its packed (score, row) key
+// and match, mismatch in int8 for its prmt words.
+inline bool needs_wide(int match, int mismatch, int oe, int ext, int rows,
+                       int band) {
+  return max_score(match, mismatch, oe, ext, rows, band) >= (1 << 16) ||
+         !fits_int8(match) || !fits_int8(mismatch);
+}
+
+// Whether a one-pass kernel may stop after a warp's last non-sentinel read
+// row: a sentinel row then leaves every cell below the maximum or equal to
+// the same cell a row earlier. A zero gap open (oe = 0) lets such a row
+// carry the maximum to a lower band offset, and a positive mismatch or
+// extend raises it, so then every row runs.
+inline bool rows_skip_exact(int mismatch, int oe, int ext) {
+  return mismatch <= 0 && oe < 0 && ext <= 0;
 }
 
 }  // namespace svjt

@@ -3,10 +3,10 @@
 // Replaces two Pallas TPU kernels that share one DP:
 //   svjedi_tpu/kernels/band_dp_dma.py:_kernel (band_dp_dma_raw), which
 //     fetches each problem's windows itself from the flat read and panel
-//     buffers -> entry band_dp_dma_kernel;
+//     buffers -> entry band_dp_dma_kernel (K3);
 //   svjedi_tpu/kernels/band_dp.py:_kernel (band_dp_pallas), which reads
 //     pre-gathered (P, M) / (P, M + band) windows -> entry
-//     band_dp_onepass_kernel.
+//     band_dp_onepass_kernel (K4).
 // Contract: cell (i, k) pairs read row i with target position i + k; codes
 // are int8 with sentinel 4 matching nothing. Every cell carries the packed
 // start (qs << 16 | ts) of its optimal path, with the TPU kernels' tie
@@ -19,42 +19,45 @@
 // problem: 8 int32 [score, qs, ts, qe, te = qe + k, 0, 0, 0]; a problem
 // scoring 0 writes [0, 0, 0, -1, -1, 0, 0, 0].
 //
-// Which entry runs which body:
-// - band_dp_dma_kernel (K3, the fused fetch, entry band_dp_dma_launch) runs
-//   its own body, K1's Hopper layout (band_dp_v3.cu) with starts: G lanes x
-//   8 cells per problem (G = 16 at band 128, two problems per warp; 32 at
-//   band 256), the target window as a register ring indexed by row mod 8,
-//   the one-prmt substitution, a packed (score, row) best key beside the
-//   best's start, and read and target bytes loaded a chunk of G rows ahead.
-//   Values take DPX add-max (VIADDMNMX); where a start follows the choice,
-//   the predicate is an equality test of the result against one operand
-//   and the start a select. Inside a lane the horizontal gap is Gotoh's
-//   F[c + 1] = max(F[c] + ext, H[c] + oe); across lanes, each lane's
-//   outgoing gap is packed with its lane index into one int, so a plain
-//   max prefix scan prefers the nearer lane at an equal value, and the
-//   winning lane's start comes with one shuffle. It masks read rows
-//   at or beyond m and target positions outside [t_lo, t_hi) (and outside
-//   either buffer) to 4, and runs the warp's largest min(m, bucket) rows,
-//   rounded up to 8: a row of sentinel reads lies strictly below an earlier
-//   cell, so it can neither reach the maximum nor change the picked cell.
-//   Scores beyond the narrow build's range (needs_wide, or gap scores
-//   outside int8) take its wide build: codes compared, the best's row in a
-//   register, and a (value, lane) pair scan.
-// - band_dp_onepass_kernel (K4, pre-gathered windows, all M rows) runs
-//   onepass_body below: one warp per problem, 4 cells per lane (8 at band
-//   256), a 5-step (value, start) pair scan and 32-row loads.
+// Both entries run one body, dp_body, on K1's Hopper layout
+// (band_dp_v3.cu) with starts; they differ only in where a window's bytes
+// come from (Flat: offsets into the flat buffers, masked to m and to
+// [t_lo, t_hi); Gathered: the problem's rows of q and t). The layout: G
+// lanes x 8 cells per problem (G = 16 at band 128, two problems per warp;
+// 32 at band 256), the target window as a register ring indexed by row mod
+// 8, the one-prmt substitution, a packed (score, row) best key beside the
+// best's start, and read and target bytes loaded a chunk of G rows ahead.
+// Values take DPX add-max (VIADDMNMX); where a start follows the choice,
+// the predicate is an equality test of the result against one operand and
+// the start a select. Inside a lane the horizontal gap is Gotoh's
+// F[c + 1] = max(F[c] + ext, H[c] + oe); across lanes, each lane's outgoing
+// gap is packed with its lane index into one int, so a plain max prefix
+// scan prefers the nearer lane at an equal value, and the winning lane's
+// start comes with one shuffle. Scores beyond the narrow build's range
+// (needs_wide: a score bound over the rows and band reaching 2^16, or any
+// score outside int8)
+// take the wide build: codes compared, the best's row in a register, and a
+// (value, lane) pair scan.
+//
+// Rows. The TPU kernels run every row (K3 bucket, K4 M). Where
+// rows_skip_exact (band_dp_common.cuh) holds, trailing sentinel rows change
+// nothing, and a warp runs only its problems' largest row count, rounded up
+// to 8: K3 the largest min(m, bucket), K4 the largest last non-sentinel row
+// + 1, which a short prologue finds by scanning each q row (16-byte loads
+// where the rows are aligned). Otherwise every warp runs all rows, bucket
+// (K3) or M (K4): a multiple of 8 (the launchers refuse others), so
+// rounding up adds no row.
 //
 // What bounds it on the H100: integer issue, not memory. A row costs each
-// problem one byte of read and one of target; each band cell needs 14 int32
-// operations as the bound counts them (K1's 9 plus five selects that carry
-// the start). Times at P = 32768, bucket 2048 on an NVIDIA H100 80GB HBM3
-// at 700 W (chip_smoke.py phase 2b): K3 7.215 ms against its 4.488 ms
-// bound (62.2%; the one-warp, 4-cell body that K4 still runs took 11.446
-// ms for K3); K4 17.794 ms against its 4.493 ms bound (25.3%). ptxas: K3
-// 107 registers (band 128) and 101 (band 256) for the narrow build, 128
-// for the wide one, no spill.
+// problem one byte of read and one of target (K4's prologue reads its q
+// rows once more); each band cell needs 14 int32 operations as the bound
+// counts them (K1's 9 plus five selects that carry the start). Times,
+// bounds and shares at P = 32768, bucket 2048: PERF.md section 6
+// (chip_smoke.py phase 2b).
 // There is no 1024-byte alignment or lane rotate: that was a Mosaic
 // constraint on the TPU's DMA, which Hopper does not have.
+
+#include <type_traits>
 
 #include "band_dp_common.cuh"
 
@@ -66,8 +69,8 @@ using namespace svjt;
 struct Gathered {
   const int8_t* q;  // M bytes
   const int8_t* t;  // M + band bytes
-  int rows;         // M
-  int t_len;        // M + band
+  int rows;         // last non-sentinel read row + 1: q reads 4 beyond it
+  int t_len;        // rows + band (0 without rows): no row reads t beyond it
   __device__ int q_at(int i) const { return i < rows ? q[i] : 4; }
   __device__ int t_at(int j) const { return j < t_len ? t[j] : 4; }
 };
@@ -92,218 +95,30 @@ struct Flat {
   }
 };
 
-template <int C, class Src>
-__device__ __forceinline__ void onepass_body(const Src& src, int rows,
-                                             int lane, int match,
-                                             int mismatch, int oe, int ext,
-                                             int32_t* __restrict__ out) {
-  constexpr int B = 32 * C;
-  const int k0 = lane * C;
-  int H[C], V[C], SH[C], SV[C], BEST[C], BS[C], BQE[C], T[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    H[c] = 0;
-    V[c] = kNeg;
-    SH[c] = k0 + c;  // packed (0 << 16) | k
-    SV[c] = k0 + c;
-    BEST[c] = 0;
-    BS[c] = 0;
-    BQE[c] = -1;
-    T[c] = src.t_at(k0 + c);
-  }
+constexpr int C = 8;  // cells per lane
 
-  int qbuf = 4, tbuf = 4;
-  for (int i = 0; i < rows; ++i) {
-    const int r = i & 31;
-    if (r == 0) {  // next 32 read bytes and the targets entering at i+B..
-      qbuf = src.q_at(i + lane);
-      tbuf = src.t_at(i + B + lane);
-    }
-    const int qi = __shfl_sync(kFull, qbuf, r);
-
-    // Vertical parents (cell k+1): the lane's next cell or the next lane's
-    // first.
-    int h_next = __shfl_down_sync(kFull, H[0], 1);
-    int v_next = __shfl_down_sync(kFull, V[0], 1);
-    int sh_next = __shfl_down_sync(kFull, SH[0], 1);
-    int sv_next = __shfl_down_sync(kFull, SV[0], 1);
-    if (lane == 31) {
-      h_next = kNeg;
-      v_next = kNeg;
-      sh_next = 0;
-      sv_next = 0;
-    }
-    int htmp[C], st[C], vnew[C], svnew[C], xv[C], xs[C];
-    int run_v = kNeg, run_s = 0;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int h_up = (c + 1 < C) ? H[c + 1] : h_next;
-      const int v_up = (c + 1 < C) ? V[c + 1] : v_next;
-      const int sh_up = (c + 1 < C) ? SH[c + 1] : sh_next;
-      const int sv_up = (c + 1 < C) ? SV[c + 1] : sv_next;
-      const int v_open = h_up + oe;
-      const int v_ext = v_up + ext;
-      vnew[c] = max(v_open, v_ext);
-      svnew[c] = (v_open >= v_ext) ? sh_up : sv_up;
-      const int sub = (qi == T[c] && qi < 4) ? match : mismatch;
-      const int diag = H[c] + sub;
-      int h = max(diag, vnew[c]);
-      int s = (diag >= vnew[c]) ? SH[c] : svnew[c];
-      if (h <= 0) {
-        h = 0;
-        s = ((i + 1) << 16) + (i + 1) + k0 + c;
-      }
-      htmp[c] = h;
-      st[c] = s;
-      // Exclusive lane-local prefix of the F sources; the nearer wins ties.
-      xv[c] = run_v;
-      xs[c] = run_s;
-      const int w = h + oe - ext * (k0 + c + 1);
-      if (w >= run_v) {
-        run_v = w;
-        run_s = s;
-      }
-    }
-    // Warp-wide inclusive prefix max of the lane totals (a farther lane
-    // must be strictly better), then exclusive.
-    int iv = run_v, is = run_s;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int ov = __shfl_up_sync(kFull, iv, off);
-      const int os = __shfl_up_sync(kFull, is, off);
-      if (lane >= off && ov > iv) {
-        iv = ov;
-        is = os;
-      }
-    }
-    int ev = __shfl_up_sync(kFull, iv, 1);
-    int es = __shfl_up_sync(kFull, is, 1);
-    if (lane == 0) {
-      ev = kNeg;
-      es = 0;
-    }
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int k = k0 + c;
-      const bool local = xv[c] >= ev;  // the lane's own sources are nearer
-      const int F = ext * k + (local ? xv[c] : ev);
-      int hn = htmp[c];
-      int sn = st[c];
-      if (k > 0 && F > hn) {
-        hn = F;
-        sn = local ? xs[c] : es;
-      }
-      if (hn > BEST[c]) {
-        BEST[c] = hn;
-        BS[c] = sn;
-        BQE[c] = i;
-      }
-      H[c] = hn;
-      SH[c] = sn;
-      V[c] = vnew[c];
-      SV[c] = svnew[c];
-    }
-    // Slide the target window: T[k] <- t[i + 1 + k].
-    int t_next = __shfl_down_sync(kFull, T[0], 1);
-    const int t_in = __shfl_sync(kFull, tbuf, r);
-    if (lane == 31) t_next = t_in;
-#pragma unroll
-    for (int c = 0; c + 1 < C; ++c) T[c] = T[c + 1];
-    T[C - 1] = t_next;
-  }
-
-  int best = BEST[0];
-#pragma unroll
-  for (int c = 1; c < C; ++c) best = max(best, BEST[c]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    best = max(best, __shfl_xor_sync(kFull, best, off));
-  int kmin = 1 << 30;
-  int bs = 0;
-  int bqe = -1;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (BEST[c] == best && k0 + c < kmin) {
-      kmin = k0 + c;
-      bs = BS[c];
-      bqe = BQE[c];
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const int ok = __shfl_xor_sync(kFull, kmin, off);
-    const int os = __shfl_xor_sync(kFull, bs, off);
-    const int oq = __shfl_xor_sync(kFull, bqe, off);
-    if (ok < kmin) {
-      kmin = ok;
-      bs = os;
-      bqe = oq;
-    }
-  }
-  if (lane == 0) {
-    out[0] = best;
-    out[1] = bs >> 16;
-    out[2] = bs & 0xFFFF;
-    out[3] = bqe;
-    out[4] = bqe + kmin;
-    out[5] = 0;
-    out[6] = 0;
-    out[7] = 0;
-  }
+// The rows a warp runs: its problems' largest own row count, rounded up to
+// C, where trailing sentinel rows may be skipped, else every row.
+__device__ __forceinline__ int warp_rows(int own_rows, int all_rows,
+                                         bool skip) {
+  const int rows = skip ? __reduce_max_sync(kFull, own_rows) : all_rows;
+  return (rows + C - 1) / C * C;
 }
 
-template <int C>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-band_dp_onepass_kernel(const int8_t* __restrict__ q,
-                       const int8_t* __restrict__ t,
-                       int32_t* __restrict__ out, int P, int M, int match,
-                       int mismatch, int oe, int ext) {
-  constexpr int B = 32 * C;
-  const int p = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (p >= P) return;
-  const Gathered src{q + (size_t)p * M, t + (size_t)p * (M + B), M, M + B};
-  onepass_body<C>(src, M, threadIdx.x & 31, match, mismatch, oe, ext,
-                  out + 8 * (size_t)p);
-}
-
-// K3's body: G lanes x C = 8 cells per problem (G = 16 at band 128, two
-// problems per warp; G = 32 at band 256), K1's layout, with each cell's
-// packed start carried beside its value. The narrow build (kWide false)
-// takes the one-prmt substitution, a packed (score, row) best key and a
-// packed (value, lane) key for the cross-lane scan; the wide build compares
-// codes, keeps the best row in a register and scans (value, lane) pairs.
-template <int G, bool kWide>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-band_dp_dma_kernel(const int8_t* __restrict__ reads, long long n_reads,
-                   const int8_t* __restrict__ panel, long long n_panel,
-                   const int32_t* __restrict__ q_start,
-                   const int32_t* __restrict__ t_start,
-                   const int32_t* __restrict__ m,
-                   const int32_t* __restrict__ t_lo,
-                   const int32_t* __restrict__ t_hi,
-                   int32_t* __restrict__ out, int P, int bucket, int match,
-                   int mismatch, int oe, int ext) {
-  constexpr int C = 8;
+// The body both entries share: G lanes x C cells per problem, K1's layout,
+// with each cell's packed start carried beside its value. The warp runs
+// `rows` rows (a multiple of C). The narrow build (kWide false) takes the one-prmt
+// substitution, a packed (score, row) best key and a packed (value, lane)
+// key for the cross-lane scan; the wide build compares codes, keeps the
+// best row in a register and scans (value, lane) pairs. Every lane of the
+// warp calls it (a dead group still takes part in shuffles); a live group's
+// lane 0 writes the problem's 8 outputs to o.
+template <int G, bool kWide, class Src>
+__device__ __forceinline__ void dp_body(const Src& src, int rows, int gl,
+                                        bool live, int match, int mismatch,
+                                        int oe, int ext,
+                                        int32_t* __restrict__ o) {
   constexpr int B = C * G;
-  constexpr int kGroups = 32 / G;  // problems per warp
-  const int lane = threadIdx.x & 31;
-  const int gl = lane % G;  // lane within the problem's group
-  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp * kGroups >= P) return;
-  const int p = warp * kGroups + lane / G;
-  const bool live = p < P;  // a dead group still takes part in shuffles
-  const int own_rows = live ? max(0, min(m[p], bucket)) : 0;
-  // The warp runs its longest problem's rows, rounded up to C; the other
-  // problem's extra rows read sentinel 4 and cannot reach its maximum.
-  const int rows = ((__reduce_max_sync(kFull, own_rows) + C - 1) / C) * C;
-  const Flat src{reads,
-                 n_reads,
-                 live ? (long long)q_start[p] : 0LL,
-                 own_rows,
-                 panel,
-                 live ? (long long)t_start[p] : 0LL,
-                 live ? max((long long)t_lo[p], 0LL) : 0LL,
-                 live ? min((long long)t_hi[p], n_panel) : 0LL};
   const int k0 = gl * C;
   const uint32_t mm4 = (uint32_t)(mismatch & 0xff) * 0x01010101u;
   const uint32_t flip = (uint32_t)((match ^ mismatch) & 0xff);
@@ -487,7 +302,6 @@ band_dp_dma_kernel(const int8_t* __restrict__ reads, long long n_reads,
     }
   }
   if (gl == 0 && live) {
-    int32_t* o = out + 8 * (size_t)p;
     o[0] = best;
     o[1] = bs >> 16;
     o[2] = bs & 0xFFFF;
@@ -499,22 +313,123 @@ band_dp_dma_kernel(const int8_t* __restrict__ reads, long long n_reads,
   }
 }
 
+// K3: the fused fetch. Problem p's windows are reads[q_start[p] + i]
+// (sentinel at i >= m[p]) and panel[t_start[p] + j] (sentinel outside
+// [t_lo[p], t_hi[p]) and outside either buffer).
 template <int G, bool kWide>
-int launch_dma(const int8_t* rd, long long n_reads, const int8_t* pn,
-               long long n_panel, const int32_t* qs, const int32_t* ts,
-               const int32_t* mm, const int32_t* lo, const int32_t* hi,
-               int32_t* o, int P, int bucket, int match, int mismatch, int oe,
-               int ext, cudaStream_t s) {
-  constexpr int kPerBlock = kWarpsPerBlock * (32 / G);
-  band_dp_dma_kernel<G, kWide>
-      <<<(P + kPerBlock - 1) / kPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
-          rd, n_reads, pn, n_panel, qs, ts, mm, lo, hi, o, P, bucket, match,
-          mismatch, oe, ext);
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+band_dp_dma_kernel(const int8_t* __restrict__ reads, long long n_reads,
+                   const int8_t* __restrict__ panel, long long n_panel,
+                   const int32_t* __restrict__ q_start,
+                   const int32_t* __restrict__ t_start,
+                   const int32_t* __restrict__ m,
+                   const int32_t* __restrict__ t_lo,
+                   const int32_t* __restrict__ t_hi,
+                   int32_t* __restrict__ out, int P, int bucket, bool skip,
+                   int match, int mismatch, int oe, int ext) {
+  constexpr int kGroups = 32 / G;  // problems per warp
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % G;  // lane within the problem's group
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (warp * kGroups >= P) return;
+  const int p = warp * kGroups + lane / G;
+  const bool live = p < P;  // a dead group still takes part in shuffles
+  const int own_rows = live ? max(0, min(m[p], bucket)) : 0;
+  const Flat src{reads,
+                 n_reads,
+                 live ? (long long)q_start[p] : 0LL,
+                 own_rows,
+                 panel,
+                 live ? (long long)t_start[p] : 0LL,
+                 live ? max((long long)t_lo[p], 0LL) : 0LL,
+                 live ? min((long long)t_hi[p], n_panel) : 0LL};
+  dp_body<G, kWide>(src, warp_rows(own_rows, bucket, skip), gl, live, match,
+                    mismatch, oe, ext, out + 8 * (size_t)p);
+}
+
+// Rows of a pre-gathered read window up to its last code other than 4 (0
+// for an all-sentinel or dead row), the same in every lane of the group:
+// each lane scans every G-th 16-byte piece (every G-th byte where the rows
+// are not 16-byte aligned), then a max over the group.
+template <int G>
+__device__ __forceinline__ int coded_rows(const int8_t* __restrict__ q,
+                                          int M, bool vec, bool live,
+                                          int gl) {
+  int last = -1;
+  if (live && vec) {
+    const uint4* w = reinterpret_cast<const uint4*>(q);
+    for (int j = gl; j < M / 16; j += G) {
+      const uint4 v = w[j];
+      const uint32_t x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // Bytes other than 4 are nonzero in d; the highest gives the row.
+        const uint32_t d = x[e] ^ 0x04040404u;
+        if (d) last = 16 * j + 4 * e + ((31 - __clz(d)) >> 3);
+      }
+    }
+  } else if (live) {
+    for (int j = gl; j < M; j += G)
+      if (q[j] != 4) last = j;
+  }
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    last = max(last, __shfl_xor_sync(kFull, last, off, G));
+  return last + 1;
+}
+
+// K4: pre-gathered windows q (P, M) and t (P, M + band).
+template <int G, bool kWide>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+band_dp_onepass_kernel(const int8_t* __restrict__ q,
+                       const int8_t* __restrict__ t,
+                       int32_t* __restrict__ out, int P, int M, bool skip,
+                       int match, int mismatch, int oe, int ext) {
+  constexpr int B = C * G;
+  constexpr int kGroups = 32 / G;  // problems per warp
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % G;  // lane within the problem's group
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (warp * kGroups >= P) return;
+  const int p = warp * kGroups + lane / G;
+  const bool live = p < P;  // a dead group still takes part in shuffles
+  const int8_t* qp = q + (size_t)p * M;
+  const bool vec = M % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const int own_rows = skip ? coded_rows<G>(qp, M, vec, live, gl) : M;
+  const Gathered src{qp, t + (size_t)p * (M + B), live ? own_rows : 0,
+                     live && own_rows > 0 ? own_rows + B : 0};
+  dp_body<G, kWide>(src, warp_rows(own_rows, M, skip), gl, live, match,
+                    mismatch, oe, ext, out + 8 * (size_t)p);
+}
+
+// Calls launch(G, kWide) with the build for the band and the scores, and
+// returns the launch's CUDA error. Every row count must be a multiple of C.
+template <class Launch>
+int for_build(int band, int rows, bool wide, Launch launch) {
+  if (rows % C != 0) return static_cast<int>(cudaErrorInvalidValue);
+  using N16 = std::integral_constant<int, 16>;
+  using N32 = std::integral_constant<int, 32>;
+  using Narrow = std::false_type;
+  using Wide = std::true_type;
+  if (band == 128) wide ? launch(N16{}, Wide{}) : launch(N16{}, Narrow{});
+  else if (band == 256) wide ? launch(N32{}, Wide{}) : launch(N32{}, Narrow{});
+  else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Problems per block of a build, and the blocks for P problems.
+template <int G>
 dim3 grid_for(int P) {
-  return dim3((P + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  constexpr int kPerBlock = kWarpsPerBlock * (32 / G);
+  return dim3((P + kPerBlock - 1) / kPerBlock);
+}
+
+// The narrow build also packs (value, lane) into one int for its scan,
+// which gap scores in int8 keep far inside int32.
+bool wide_build(int match, int mismatch, int oe, int ext, int rows,
+                int band) {
+  return needs_wide(match, mismatch, oe, ext, rows, band) || !fits_int8(oe) ||
+         !fits_int8(ext);
 }
 
 }  // namespace
@@ -524,24 +439,18 @@ extern "C" int band_dp_onepass_launch(const void* q, const void* t, void* out,
                                       int mismatch, int oe, int ext,
                                       void* stream) {
   if (P <= 0) return 0;
-  const dim3 block(32 * kWarpsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int8_t* qq = static_cast<const int8_t*>(q);
   const int8_t* tt = static_cast<const int8_t*>(t);
   int32_t* o = static_cast<int32_t*>(out);
-  switch (band) {
-    case 128:
-      band_dp_onepass_kernel<4><<<grid_for(P), block, 0, s>>>(
-          qq, tt, o, P, M, match, mismatch, oe, ext);
-      break;
-    case 256:
-      band_dp_onepass_kernel<8><<<grid_for(P), block, 0, s>>>(
-          qq, tt, o, P, M, match, mismatch, oe, ext);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool skip = rows_skip_exact(mismatch, oe, ext);
+  return for_build(band, M, wide_build(match, mismatch, oe, ext, M, band),
+                   [&](auto g, auto wide) {
+    constexpr int G = decltype(g)::value;
+    band_dp_onepass_kernel<G, decltype(wide)::value>
+        <<<grid_for<G>(P), 32 * kWarpsPerBlock, 0, s>>>(
+            qq, tt, o, P, M, skip, match, mismatch, oe, ext);
+  });
 }
 
 extern "C" int band_dp_dma_launch(const void* reads, long long n_reads,
@@ -562,15 +471,14 @@ extern "C" int band_dp_dma_launch(const void* reads, long long n_reads,
   const int32_t* lo = static_cast<const int32_t*>(t_lo);
   const int32_t* hi = static_cast<const int32_t*>(t_hi);
   int32_t* o = static_cast<int32_t*>(out);
-  // The narrow build also packs (value, lane) into one int for its scan,
-  // which gap scores in int8 keep far inside int32.
-  const bool wide =
-      needs_wide(match, mismatch, bucket) || !fits_int8(oe) || !fits_int8(ext);
-#define SVJT_LAUNCH(G, W)                                                  \
-  launch_dma<G, W>(rd, n_reads, pn, n_panel, qs, ts, mm, lo, hi, o, P,     \
-                   bucket, match, mismatch, oe, ext, s)
-  if (band == 128) return wide ? SVJT_LAUNCH(16, true) : SVJT_LAUNCH(16, false);
-  if (band == 256) return wide ? SVJT_LAUNCH(32, true) : SVJT_LAUNCH(32, false);
-#undef SVJT_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bool skip = rows_skip_exact(mismatch, oe, ext);
+  return for_build(band, bucket,
+                   wide_build(match, mismatch, oe, ext, bucket, band),
+                   [&](auto g, auto wide) {
+    constexpr int G = decltype(g)::value;
+    band_dp_dma_kernel<G, decltype(wide)::value>
+        <<<grid_for<G>(P), 32 * kWarpsPerBlock, 0, s>>>(
+            rd, n_reads, pn, n_panel, qs, ts, mm, lo, hi, o, P, bucket, skip,
+            match, mismatch, oe, ext);
+  });
 }

@@ -304,7 +304,7 @@ int launch_any(const void* qT, const void* tT, const void* prefetch,
   const int32_t* pf = static_cast<const int32_t*>(prefetch);
   const int32_t* mv = static_cast<const int32_t*>(m);
   int32_t* o = static_cast<int32_t*>(out);
-  const bool wide = needs_wide(match, mismatch, bucket);
+  const bool wide = needs_wide(match, mismatch, oe, ext, bucket, band);
 #define SVJT_LAUNCH(G, W) \
   launch<G, W, kRev>(q, t, pf, mv, o, P, bucket, match, mismatch, oe, ext, s)
   if (band == 128) return wide ? SVJT_LAUNCH(16, true) : SVJT_LAUNCH(16, false);

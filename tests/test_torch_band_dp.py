@@ -127,9 +127,68 @@ def test_wrapper_rejects_bad_inputs():
         k4.band_dp_onepass(q.to("meta"), t.to("meta"), 128)
     with pytest.raises(ValueError, match="band 128 or 256"):
         k4.check_kernel_band(192)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k4.check_kernel_rows(100)
     launches = k4.launches
     k4.band_dp_onepass(q, t, 128)
     assert k4.launches == launches  # the plain version launches nothing
+
+
+#: Scores on both sides of the row-skip condition: the defaults, a zero
+#: mismatch, a zero gap open, a zero extend (open + extend -4 and -1), then
+#: open + extend 0 (two ways), a positive mismatch and a positive extend.
+ROW_SKIP_SCORES = {
+    "defaults": {}, "mismatch=0": dict(mismatch=0),
+    "gap_open=0": dict(gap_open=0), "gap_extend=0": dict(gap_extend=0),
+    "oe=-1": dict(gap_open=-1, gap_extend=0),
+    "oe=0": dict(gap_open=2, gap_extend=-2),
+    "gap_open=gap_extend=0": dict(gap_open=0, gap_extend=0),
+    "mismatch=1": dict(mismatch=1), "gap_extend=1": dict(gap_extend=1),
+}
+
+
+@pytest.mark.parametrize("scores", ROW_SKIP_SCORES.values(),
+                         ids=ROW_SKIP_SCORES.keys())
+def test_trailing_sentinel_rows_change_nothing_where_rows_skip_exact(scores):
+    """The premise of the kernels' row skip, on the plain version: each
+    problem run up to its last non-sentinel read row, rounded up to 8,
+    equals all M rows wherever rows_skip_exact holds; elsewhere some
+    problem differs."""
+    params = DPParams(**scores)
+    band, M, P = 128, 128, 16
+    q, t = _problems(61, P, M, band)
+    ends = np.random.default_rng(62).integers(M // 4, M // 2 + 1, P)
+    q[np.arange(M)[None, :] >= ends[:, None]] = 4
+    coded = q[:, ::-1] != 4
+    rows = np.where(coded.any(axis=1), M - coded.argmax(axis=1), 0)
+    rows = (rows + 7) // 8 * 8
+    qt, tt = _torch(q, t)
+    full = k4.onepass_plain(qt, tt, band, params)
+    cut = torch.tensor([[0, 0, 0, -1, -1]], dtype=torch.int32).repeat(P, 1)
+    for r in np.unique(rows[rows > 0]):
+        sel = torch.from_numpy(rows == r)
+        cut[sel] = k4.onepass_plain(qt[sel, :r], tt[sel, :r + band], band,
+                                    params)
+    same = (cut == full).all(dim=1)
+    if k4.rows_skip_exact(params):
+        assert same.all()
+    else:
+        assert not same.all()
+
+
+def test_onepass_with_zero_gap_open_matches_pallas_interpret():
+    """open + extend = 0, where trailing sentinel rows move the result: the
+    port runs every row, as the JAX kernel does."""
+    band, M, P = 128, 128, 8
+    q, t = _problems(67, P, M, band)
+    q[:, M // 2:] = 4
+    ref = band_dp_pallas(q, t, band, JaxDPParams(gap_open=2, gap_extend=-2),
+                         interpret=True)
+    got = k4.band_dp_onepass(*_torch(q, t), band,
+                             DPParams(gap_open=2, gap_extend=-2))
+    for key in KEYS:
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]),
+                                      err_msg=key)
 
 
 @pytest.mark.gpu
@@ -142,6 +201,69 @@ def test_cuda_kernel_matches_plain_version(cuda_device, band):
     ref = k4.band_dp_onepass_ref(qd, td, band)
     torch.cuda.synchronize()
     assert k4.launches == launches + 1
+    for key in KEYS:
+        np.testing.assert_array_equal(got[key].cpu().numpy(),
+                                      ref[key].cpu().numpy(), err_msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [128, 256])
+@pytest.mark.parametrize("scores", [dict(gap_open=2, gap_extend=-2),
+                                    dict(mismatch=-200)],
+                         ids=["oe=0", "wide"])
+def test_cuda_kernel_matches_plain_version_with_other_scores(cuda_device,
+                                                             band, scores):
+    """A zero gap open (every row runs) and the wide build (mismatch -200),
+    with an all-sentinel read beside a full one in each warp."""
+    q, t = _problems(37, 64, 384, band)
+    q[0::2] = 4
+    q[1::2] = np.where(q[1::2] == 4, 0, q[1::2])
+    qd, td = (x.to(cuda_device) for x in _torch(q, t))
+    params = DPParams(**scores)
+    got = k4.band_dp_onepass(qd, td, band, params)
+    ref = k4.band_dp_onepass_ref(qd, td, band, params)
+    torch.cuda.synchronize()
+    for key in KEYS:
+        np.testing.assert_array_equal(got[key].cpu().numpy(),
+                                      ref[key].cpu().numpy(), err_msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [128, 256])
+def test_cuda_kernel_with_positive_mismatch_matches_plain_version(cuda_device,
+                                                                  band):
+    """mismatch 100 at M = 1024: scores pass 2^16 at a small match, so the
+    launcher must bound them by every step, not by match x M."""
+    q, t = _problems(41, 64, 1024, band)
+    qd, td = (x.to(cuda_device) for x in _torch(q, t))
+    params = DPParams(mismatch=100)
+    got = k4.band_dp_onepass(qd, td, band, params)
+    ref = k4.band_dp_onepass_ref(qd, td, band, params)
+    torch.cuda.synchronize()
+    assert int(ref["score"].max()) >= 1 << 16
+    for key in KEYS:
+        np.testing.assert_array_equal(got[key].cpu().numpy(),
+                                      ref[key].cpu().numpy(), err_msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [128, 256])
+@pytest.mark.parametrize("layout", ["M=392", "offset"])
+def test_cuda_kernel_byte_row_scan_matches_plain_version(cuda_device, band,
+                                                         layout):
+    """The row scan's byte path: rows not a multiple of 16 bytes, or q at
+    an 8-byte storage offset, with an all-sentinel read beside a full one."""
+    M = 392 if layout == "M=392" else 384
+    q, t = _problems(43, 64, M, band)
+    q[0::2] = 4
+    qd, td = (x.to(cuda_device) for x in _torch(q, t))
+    if layout == "offset":
+        buf = torch.empty(qd.numel() + 8, dtype=torch.int8, device=cuda_device)
+        qd = buf[8:].view(qd.shape)
+        qd.copy_(torch.from_numpy(q))
+    got = k4.band_dp_onepass(qd, td, band)
+    ref = k4.band_dp_onepass_ref(qd, td, band)
+    torch.cuda.synchronize()
     for key in KEYS:
         np.testing.assert_array_equal(got[key].cpu().numpy(),
                                       ref[key].cpu().numpy(), err_msg=key)

@@ -128,6 +128,25 @@ def test_plain_matches_jax_short_beside_full(bucket, band):
     assert (got["score"][1::2] > 0).all()
 
 
+def test_plain_matches_jax_with_zero_gap_open():
+    """open + extend = 0, where rows past m move the result: the port runs
+    every bucket row, as the JAX kernel does."""
+    from svjedi_tpu_torch.align.extend import DPParams
+
+    bucket, band, P = 128, 128, 8
+    jd, td, vecs = layout(71, P, bucket, band)
+    ref = jax_band_dp_dma(jd.reads2, jd.panel_padded, *vecs, bucket=bucket,
+                          band=band, params=JaxDPParams(gap_open=2,
+                                                        gap_extend=-2),
+                          interpret=True)
+    T = (torch.from_numpy(v) for v in vecs)
+    got = k3.band_dp_dma(td.reads2, td.panel_padded, *T, bucket=bucket,
+                         band=band, params=DPParams(gap_open=2, gap_extend=-2))
+    for key in KEYS:
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(ref[key]),
+                                      err_msg=key)
+
+
 def test_raw_is_onepass_on_gathered_windows():
     """(P, 8) raw layout, and the fused fetch equals the byte gather plus
     the pre-gathered DP on all five columns."""
@@ -198,4 +217,44 @@ def test_cuda_kernel_short_beside_full_matches_plain_version(cuda_device,
     ref = k3.band_dp_dma_raw_ref(td.reads2, td.panel_padded, *T,
                                  bucket=bucket, band=band, params=params)
     torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [128, 256])
+def test_cuda_kernel_with_zero_gap_open_matches_plain_version(cuda_device,
+                                                             band):
+    """open + extend = 0: every bucket row runs, whatever m is."""
+    from svjedi_tpu_torch.align.extend import DPParams
+
+    bucket, P = 512, 64
+    _, td, vecs = layout(47, P, bucket, band, device=cuda_device)
+    T = [torch.from_numpy(v).to(cuda_device) for v in vecs]
+    params = DPParams(gap_open=2, gap_extend=-2)
+    got = k3.band_dp_dma_raw(td.reads2, td.panel_padded, *T, bucket=bucket,
+                             band=band, params=params)
+    ref = k3.band_dp_dma_raw_ref(td.reads2, td.panel_padded, *T,
+                                 bucket=bucket, band=band, params=params)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [128, 256])
+def test_cuda_kernel_with_positive_mismatch_matches_plain_version(cuda_device,
+                                                                  band):
+    """mismatch 100 at bucket 1024: scores pass 2^16 at a small match, so
+    the launcher must bound them by every step, not by match x bucket."""
+    from svjedi_tpu_torch.align.extend import DPParams
+
+    bucket, P = 1024, 64
+    _, td, vecs = layout(53, P, bucket, band, device=cuda_device)
+    T = [torch.from_numpy(v).to(cuda_device) for v in vecs]
+    params = DPParams(mismatch=100)
+    got = k3.band_dp_dma_raw(td.reads2, td.panel_padded, *T, bucket=bucket,
+                             band=band, params=params)
+    ref = k3.band_dp_dma_raw_ref(td.reads2, td.panel_padded, *T,
+                                 bucket=bucket, band=band, params=params)
+    torch.cuda.synchronize()
+    assert int(ref[:, 0].max()) >= 1 << 16
     np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
