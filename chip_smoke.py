@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``nvidia-smi`` name and power limit, and the int32 peak (SMs x 64 lanes x
    the max SM clock) that the kernels' bounds use. Builds the port's native
    host library (``svjedi_tpu_torch/native/fastio.cpp``) and the CUDA
-   kernels (``svjedi_tpu_torch/kernels/csrc``), prints ptxas's registers and
+   kernels (``svjedi_tpu_torch/kernels/csrc``: the DP kernels and the
+   minimizer scan), prints ptxas's registers and
    spills for each build (or that the library was cached) and the DPX
    instructions in the SASS of K1/K1' (8 builds), K3 (4) and K4 (4); fails
    if a K1/K1' build or a narrow K3 or K4 build has no DPX add-max
@@ -24,8 +25,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    those cases, on raw windows (derived m, n_valid < P) and on end-clamped
    windows (m = qe + 1 and derived m); both kernels' wide build (scores
    that match x bucket or int8 cannot hold) at bucket 30720 and at band
-   256; K1's forward kernel at mismatch 100, whose scores pass 2^16 (wide
-   build). At P = 32768, bucket 2048 times K1, K1' alone, the flipped-window
+   256; K1 and K1' at mismatch 100 (scores pass 2^16: wide build), at open
+   + extend 1 and at extend 1 (bucket 2048, bands 128 and 256), where K1'
+   runs every row. At P = 32768, bucket 2048 times K1, K1' alone, the flipped-window
    reverse pass it replaced (flip + roll + the forward kernel) and the
    plain versions, with Gcell/s, the bound and the share of the bound.
 2b. One-pass kernels vs plain, exactly, at every bucket with band 128 and
@@ -44,18 +46,33 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 2c. Pre-gathered path: the windows of phase 2b's production batch fetched
    on the card (``gather_windows``) and scored by ``band_dp_onepass``; the
    result must equal the fused-fetch kernel's on the same problems.
-3. Main path: simulates the 10 Mb / 1,000 SV / 20x configuration
-   (``bench.py``'s scale config seeds) and runs
-   ``python -m svjedi_tpu_torch run`` on it as a subprocess (the card, the
-   v3 engine, with ``--gaf``). It must exit 0, genotype at accuracy 100.0,
-   launch the forward and the reverse kernel, load the port's own native
-   library, and print none
-   of the aligner's fault warnings.
+   Then the 10 Mb / 1,000 SV / 20x configuration is simulated (the scale
+   config's seeds) for the phases below.
+2d. The minimizer scan (D1, ``dev_scan``) against its plain version, bit
+   for bit, at k/w 15/10 and 11/5 on edge-case reads (N runs, palindromes,
+   reads of 5, k - 1, k, k + w - 2 and k + w - 1 bases, an empty read, a
+   read ending on a tile edge and one straddling it, a code count that is
+   not a multiple of 8), and through ``dispatch_scan``'s pinned copy; then
+   on a full production chunk of the simulated reads (16,384 reads):
+   bit-equal to the plain version, its set bits equal to the native host
+   emission, ``seed_candidates(bits=...)`` equal to the host scan's
+   candidates; times the kernel and the plain version, with the bound.
+3. Main path: runs ``python -m svjedi_tpu_torch run`` on the simulated
+   bundle as a subprocess (the card, the v3 engine, with ``--gaf``). It
+   must exit 0, genotype at accuracy 100.0, launch the forward and the
+   reverse kernel, seed from the device scan with one scan launch per
+   chunk, load the port's own native library, and print none of the
+   aligner's fault warnings.
 4. One-pass path: ``run_pipeline(..., engine="dma")`` in this process on
    phase 3's files, gated like phase 3, with band_dp_dma launches > 0 and
    band_dp_v3 launches == 0; prints its align stage, reads/s, peak device
    memory, the VCF records that differ from phase 3's, and per winner field
    (GAF spans, score, mapq) how many winners the two engines disagree on.
+5. Bench: ``SVJT_BENCH_CONFIG=scale python -m svjedi_tpu_torch.bench`` as
+   a subprocess; it must exit 0 and print one JSON line with a positive
+   ``scale_reads_per_s_per_chip``; its stderr timings are printed.
+
+Every phase prints its seconds.
 
 Everything runs through ``svjedi_tpu_torch``; nothing of JAX or of the JAX
 package is imported. The second-to-last line is the kernels' JSON record;
@@ -162,7 +179,7 @@ def phase_device():
     if build.build_seconds == 0.0:
         log("[build] ptxas report unavailable: the kernels' library was "
             "cached, not rebuilt")
-    for src in ("band_dp_v3.cu", "band_dp_onepass.cu"):
+    for src in ("band_dp_v3.cu", "band_dp_onepass.cu", "dev_scan.cu"):
         for line in build.ptxas_report.get(src, "").splitlines():
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
@@ -368,17 +385,20 @@ def phase_kernel(peak_ops: float):
             f"{wide.mismatch}, bucket {bucket:5d} band {band} P {P}: fwd, "
             f"bounded fwd, rev kernel exact ({time.perf_counter() - t0:.1f} s)")
 
-    # A positive mismatch (mismatch 100 at bucket 2048): scores pass 2^16
-    # though match x bucket does not, so the wide build must run. Forward
-    # only: the reverse kernel refuses positive scores.
-    pos = DPParams(mismatch=100)
-    for band in (BAND, 256):
-        qT, tT, _ = make_problems(2051, 256, 2048, sort_m=True, band=band)
-        qT, tT = torch.from_numpy(qT).to(dev), torch.from_numpy(tT).to(dev)
-        out = fwd_case(f"mismatch=100 bucket=2048 band={band}", qT, tT, 2048,
-                       None, band, pos)
-        log(f"[kernel] mismatch 100, bucket 2048 band {band} P 256: fwd exact "
-            f"(best score {int(out[:, 0].max())})")
+    # Positive scores at bucket 2048: a mismatch of 100 (scores pass 2^16
+    # though match x bucket does not, so the wide build must run), open +
+    # extend 1 and extend 1. A sentinel row can then change H, so the
+    # reverse kernel runs every row (m = bucket) whatever m it is given.
+    for pos in (DPParams(mismatch=100), DPParams(gap_open=3, gap_extend=-2),
+                DPParams(gap_extend=1)):
+        for band in (BAND, 256):
+            qT, tT, _ = make_problems(2051, 256, 2048, sort_m=True, band=band)
+            qT, tT = torch.from_numpy(qT).to(dev), torch.from_numpy(tT).to(dev)
+            tag = f"{pos} bucket=2048 band={band}"
+            out = fwd_case(tag, qT, tT, 2048, None, band, pos)
+            rev_cases(tag, qT, tT, out[:, 1], out[:, 2], 2048, band, pos)
+            log(f"[kernel] {pos}, bucket 2048 band {band} P 256: fwd and rev "
+                f"kernel exact (best score {int(out[:, 0].max())})")
 
     # Production-shaped batch: P = 32768 at bucket 2048, m-sorted windows.
     P, bucket = 32768, 2048
@@ -491,6 +511,28 @@ def check_native(counters, what: str) -> None:
              f"not the port's build {build.NATIVE_LIB}")
 
 
+def expected_chunks(n_reads: int, chunk_reads: int = 16384) -> int:
+    """Chunks ``align_and_count`` cuts ``n_reads`` into at its defaults: a
+    quarter chunk first when there is more than one chunk."""
+    if n_reads <= chunk_reads:
+        return 1
+    first = max(256, chunk_reads // 4)
+    return 1 + -(-(n_reads - first) // chunk_reads)
+
+
+def check_device_scan(counters, n_reads: int, what: str) -> int:
+    """The run must have seeded from the device scan, one kernel launch per
+    chunk; returns the launches."""
+    launches = int(counters.get("dev_scan_launches", -1))
+    if counters.get("seed_path") != "device":
+        fail(f"{what} recorded seed_path {counters.get('seed_path')!r}, not "
+             f"'device'")
+    if launches != expected_chunks(n_reads):
+        fail(f"{what} launched the dev_scan kernel {launches} times for "
+             f"{expected_chunks(n_reads)} chunks")
+    return launches
+
+
 def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
     from svjedi_tpu_torch.evals.contingency import contingency_report
     from svjedi_tpu_torch.kernels import band_dp_v3
@@ -526,6 +568,7 @@ def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
     if rev_launches <= 0:
         fail("the main path launched the band_dp_v3 reverse kernel no time")
     check_native(counters, "the main path")
+    scan_launches = check_device_scan(counters, n_reads, "the main path")
     report = contingency_report(paths["vcf"], f"{prefix}_genotype.vcf")
     acc = re.search(r"accuracy: ([\d.]+)", report)
     log("[main] " + " | ".join(report.strip().splitlines()))
@@ -539,9 +582,10 @@ def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
         f"max_memory_allocated {counters.get('device_max_memory_allocated')} "
         f"bytes; band_dp_v3 launches {launches} (reverse kernel "
         f"{rev_launches}); seed path "
-        f"{counters.get('seed_path')}; audit re-score warnings {n_audit_warn}; "
+        f"{counters.get('seed_path')} (dev_scan launches {scan_launches}); "
+        f"audit re-score warnings {n_audit_warn}; "
         f"n_audit_rescore_below {counters.get('n_audit_rescore_below')}")
-    return launches, rev_launches, prefix
+    return launches, rev_launches, scan_launches, prefix
 
 
 # ---- phase 2b -----------------------------------------------------------------
@@ -730,6 +774,197 @@ def phase_onepass_kernels(peak_ops: float):
     return err, times, bounds, (data, vecs, dma_out, bucket)
 
 
+# ---- phase 2d -----------------------------------------------------------------
+
+#: int32 operations per k-mer position of the device scan (D1), the least
+#: the work needs: rolling the two 2-bit k-mers over one new base (code & 3,
+#: 3 - c, shift | or & mask for fwd, shift, shift, or for rc, the N test and
+#: its last-N update: 10), then min, fwd != rc, fmix32 (3 shifts, 3 xors,
+#: 2 multiplies), the read-id tests and the two selects (15).
+SCAN_OPS_PER_POSITION = 25
+#: Per step of a run (read-id compare, hash compare, count); a valid
+#: position takes min(a + 1, w - 1) + min(b + 1, w - 1) steps.
+SCAN_OPS_PER_STEP = 3
+SCAN_KW = ((15, 10), (11, 5))
+
+
+def scan_read_sets(k: int, w: int):
+    """Edge-case reads for the scan: lengths 5, k - 1, k, k + 1, k + w - 2,
+    k + w - 1 and longer, an empty read, N runs, an all-N read, all-
+    palindromic and periodic reads; and reads against the kernel's 1024-
+    position tiles (one ending on a tile edge, one straddling the edge at
+    2048, an empty one, 3,097 codes in all: not a multiple of 8)."""
+    def concat(reads):
+        return (np.concatenate(reads),
+                np.concatenate([[0], np.cumsum([len(r) for r in reads])]))
+
+    rng = np.random.default_rng(11)
+    reads = [rng.integers(0, 4, n).astype(np.int8)
+             for n in (5, k - 1, k, k + 1, k + w - 2, k + w - 1, 200, 1999,
+                       7777)]
+    nread = rng.integers(0, 4, 500).astype(np.int8)
+    nread[:25] = 4
+    nread[200:260] = 4
+    nread[-3:] = 4
+    at = np.tile(np.array([0, 3], np.int8), 200)  # "ATAT..."
+    acgt = np.tile(np.arange(4, dtype=np.int8), 300)
+    reads += [nread, np.full(60, 4, np.int8), at, acgt]
+    reads.insert(3, np.zeros(0, np.int8))
+    tiles = [rng.integers(0, 4, n).astype(np.int8)
+             for n in (1024, 1000, 0, 1, 1030, 37, 5)]
+    return {"edge reads": concat(reads), "tile edges": concat(tiles)}
+
+
+def phase_dev_scan(peak_ops: float, paths):
+    """D1: the scan kernel against its plain version on the card, bit for
+    bit, on edge cases and on a full production chunk of the 10 Mb reads;
+    there also against the native host emission and, through
+    seed_candidates, the host path's candidates. Times the kernel."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from svjedi_tpu_torch.align import dev_scan as scan
+    from svjedi_tpu_torch.align.decoy import build_decoy
+    from svjedi_tpu_torch.align.device import upload
+    from svjedi_tpu_torch.align.index import build_panel_index, merge_indexes
+    from svjedi_tpu_torch.align.seed import ChainParams, seed_candidates
+    from svjedi_tpu_torch.config import AlignConfig
+    from svjedi_tpu_torch.graph.build import build_graph
+    from svjedi_tpu_torch.graph.cluster import build_panel
+    from svjedi_tpu_torch.graph.svparse import parse_vcf_svs
+    from svjedi_tpu_torch.io.fasta import read_fasta
+    from svjedi_tpu_torch.io.fastq import read_reads
+    from svjedi_tpu_torch.kernels import dev_scan as kscan
+    from svjedi_tpu_torch.utils.native import load_native
+
+    dev = torch.device("cuda:0")
+    no_panel = SimpleNamespace(paths=[])
+    n_cases = 0
+
+    def check(tag, dd, k, w):
+        nonlocal n_cases
+        n_cap = scan._scan_cap(dd.n_codes, dd.n_bases)
+        got = kscan.dev_scan(dd.reads2, dd.offsets32, k, w, n_cap)
+        ref = kscan.dev_scan_ref(dd.reads2, dd.offsets32, k, w, n_cap)
+        pinned = scan.fetch_bitmask(scan.dispatch_scan(dd, k, w))
+        torch.cuda.synchronize()
+        n_cases += 1
+        if not torch.equal(got, ref):
+            n_bad = int((got != ref).sum())
+            fail(f"dev_scan kernel differs from its plain version: {tag}, "
+                 f"k={k} w={w}, {n_bad} of {got.numel()} bytes")
+        if not np.array_equal(pinned, got.cpu().numpy()):
+            fail(f"dispatch_scan's pinned copy differs from the kernel's "
+                 f"bitmask: {tag}, k={k} w={w}")
+        return got.cpu().numpy(), n_cap
+
+    for k, w in SCAN_KW:
+        for tag, (codes, offsets) in scan_read_sets(k, w).items():
+            dd = upload(codes, no_panel, dev, offsets=offsets)
+            bits, n_cap = check(tag, dd, k, w)
+            rid, _ = scan.bitmask_positions(bits, offsets)
+            n_kmers = np.diff(offsets) - k + 1
+            if np.isin(rid, np.flatnonzero(n_kmers < w)).any():
+                fail(f"dev_scan set a bit in a read shorter than k + w - 1 "
+                     f"({tag}, k={k} w={w})")
+            log(f"[scan] {tag}, k {k} w {w}: n_codes {len(codes)}, n_cap "
+                f"{n_cap}, {len(rid)} minimizers; kernel, plain version and "
+                f"pinned copy bit-equal")
+
+    # A full production chunk (chunk_reads = 16,384; the first chunk of a
+    # run is a quarter chunk, so this is the run's second).
+    cfg = AlignConfig()
+    k, w = cfg.kmer, cfg.window
+    t0 = time.perf_counter()
+    reads = read_reads(str(paths["reads"]))
+    chunk = reads.slice(4096, min(reads.n_reads, 4096 + 16384))
+    del reads
+    dd = upload(chunk.codes, no_panel, dev, offsets=chunk.offsets)
+    bits, n_cap = check("production chunk", dd, k, w)
+    native = load_native()
+    if native is None:
+        fail("the port's native library did not load")
+    m_read, m_pos, _, _ = native.minimizers(chunk.codes, chunk.offsets, k, w,
+                                            n_threads=os.cpu_count() or 1)
+    keep = (np.diff(chunk.offsets) - k + 1)[m_read] >= w
+    got_read, got_pos = scan.bitmask_positions(bits, chunk.offsets)
+    if not (np.array_equal(got_read, m_read[keep])
+            and np.array_equal(got_pos, m_pos[keep])):
+        fail(f"dev_scan's emission differs from the native host scan: "
+             f"{len(got_read)} against {int(keep.sum())} minimizers")
+    log(f"[scan] production chunk: {chunk.n_reads} reads, n_codes "
+        f"{len(chunk.codes)}, n_cap {n_cap}: kernel == plain version, set "
+        f"bits == native emission ({len(got_read)} minimizers) "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # Candidates from the bitmask == the host scan's, on the merged panel +
+    # decoy index with the panel-path limit (align_and_count's seeding).
+    t0 = time.perf_counter()
+    chroms = read_fasta(paths["ref"])
+    parsed = parse_vcf_svs(paths["vcf"], {c: len(s) for c, s in chroms.items()})
+    panel = build_panel(build_graph(chroms, parsed), flank=cfg.flank,
+                        cluster_gap=cfg.cluster_gap,
+                        max_paths_per_cluster=cfg.max_paths_per_cluster,
+                        max_hops_per_path=cfg.max_hops_per_path)
+    hits = cfg.max_hits_per_minimizer
+    index = build_panel_index(panel, k=k, w=w, max_hits_per_minimizer=hits)
+    decoy = build_decoy(panel, k=k, w=w, max_hits_per_minimizer=hits)
+    combo = merge_indexes(index, decoy.index)
+    cp = ChainParams(min_anchors=cfg.min_anchors, max_chains=cfg.max_chains,
+                     max_gap=cfg.chain_max_gap, drift_abs=cfg.chain_drift_abs,
+                     drift_permille=cfg.chain_drift_permille,
+                     block_rows=cfg.block_rows,
+                     ext_min_anchors=cfg.chain_ext_min_anchors)
+    limit = len(index.path_len)
+    t1 = time.perf_counter()
+    via_dev = seed_candidates(chunk, combo, chain_params=cp, threads=cfg.threads,
+                              panel_path_limit=limit, bits=bits)
+    t2 = time.perf_counter()
+    via_host = seed_candidates(chunk, combo, chain_params=cp,
+                               threads=cfg.threads, panel_path_limit=limit)
+    t3 = time.perf_counter()
+    for f in ("read", "path", "strand", "d0", "n_anchors", "chain", "q_lo",
+              "q_hi", "a_lo", "a_hi"):
+        if not np.array_equal(getattr(via_dev, f), getattr(via_host, f)):
+            fail(f"seed_candidates from the bitmask differ from the host "
+                 f"scan's in {f}")
+    log(f"[scan] production chunk: seed_candidates(bits=) == host scan "
+        f"({len(via_host)} candidates; lookup + chain from the bitmask "
+        f"{t2 - t1:.2f} s, host scan + lookup + chain {t3 - t2:.2f} s; "
+        f"index build {t1 - t0:.1f} s)")
+    del panel, index, decoy, combo, via_dev, via_host
+
+    ms = cuda_time_ms(
+        lambda: kscan.dev_scan(dd.reads2, dd.offsets32, k, w, n_cap), reps=20)
+    plain_ms = cuda_time_ms(
+        lambda: kscan.dev_scan_ref(dd.reads2, dd.offsets32, k, w, n_cap),
+        reps=2)
+    # Bound: the k-mer positions inside the codes, the run steps this
+    # chunk's hashes take, each code byte read once, offsets once, the
+    # bitmask written once.
+    h, _, a, b = kscan.scan_runs(dd.reads2, dd.offsets32, k, w, n_cap)
+    valid = h != kscan.INVALID
+    steps = int(((a + 1).clamp(max=w - 1) + (b + 1).clamp(max=w - 1))[valid]
+                .sum())
+    positions = max(0, dd.n_codes - k + 1)
+    ops = positions * SCAN_OPS_PER_POSITION + steps * SCAN_OPS_PER_STEP
+    n_bytes = dd.n_codes + 4 * dd.offsets32.numel() + n_cap // 8
+    ops_ms = ops / peak_ops * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    bms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                                  "bytes")
+    log(f"[scan] dev_scan production chunk (n_cap {n_cap}, {positions} "
+        f"positions, {steps} run steps): kernel {ms:.3f} ms "
+        f"({positions / ms / 1e6:.2f} Gpos/s), plain {plain_ms:.3f} ms; bound "
+        f"{bms:.3f} ms by {by} ({ops / 1e9:.3f} Gop; bytes {bytes_ms:.3f} "
+        f"ms), {100 * bms / ms:.1f}% of bound; {n_cases} bit-equal checks")
+    del h, a, b, valid, dd
+    torch.cuda.empty_cache()
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
 # ---- phase 4 ------------------------------------------------------------------
 
 
@@ -778,7 +1013,7 @@ def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path):
 
     from svjedi_tpu_torch.config import PipelineConfig
     from svjedi_tpu_torch.evals.contingency import contingency_report
-    from svjedi_tpu_torch.kernels import band_dp_dma, band_dp_v3
+    from svjedi_tpu_torch.kernels import band_dp_dma, band_dp_v3, dev_scan
     from svjedi_tpu_torch.pipeline import run_pipeline
 
     prefix = out / "dma"
@@ -788,6 +1023,7 @@ def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path):
     err = io.StringIO()
     band_dp_dma.launches = 0
     band_dp_v3.launches = 0
+    dev_scan.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         run_pipeline(cfg, device=torch.device("cuda:0"), engine="dma")
@@ -809,6 +1045,7 @@ def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path):
     if counters.get("engine") != "dma":
         fail(f"the one-pass run recorded engine {counters.get('engine')!r}")
     check_native(counters, "the one-pass path")
+    check_device_scan(counters, n_reads, "the one-pass path")
     vcf = Path(f"{prefix}_genotype.vcf")
     report = contingency_report(paths["vcf"], str(vcf))
     acc = re.search(r"accuracy: ([\d.]+)", report)
@@ -864,6 +1101,35 @@ def phase_pregathered_path(data, vecs, dma_out, bucket: int):
     return launches
 
 
+# ---- phase 5 ------------------------------------------------------------------
+
+
+def phase_bench(timeout: int = 900) -> float:
+    """The port's bench, scale configuration, as a user runs it."""
+    cmd = [sys.executable, "-m", "svjedi_tpu_torch.bench"]
+    env = dict(os.environ, SVJT_BENCH_CONFIG="scale")
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    for line in proc.stderr.splitlines():
+        if line.startswith(("[bench]", "[scale]")):
+            log(f"[bench] stderr: {line}")
+    if proc.returncode != 0:
+        for line in proc.stderr.splitlines()[-10:]:
+            log(f"[bench] stderr: {line}")
+        fail(f"svjedi_tpu_torch.bench exited {proc.returncode}: "
+             f"{proc.stdout.strip()}")
+    lines = proc.stdout.strip().splitlines()
+    if len(lines) != 1:
+        fail(f"the bench printed {len(lines)} lines on stdout, not one")
+    result = json.loads(lines[0])
+    if (result.get("metric") != "scale_reads_per_s_per_chip"
+            or not result.get("value", 0) > 0):
+        fail(f"the bench's result is not a positive scale metric: {result}")
+    log(f"[bench] {lines[0]}")
+    return float(result["value"])
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     sys.path.insert(0, str(ROOT))
@@ -874,21 +1140,34 @@ def main() -> int:
     except ImportError as exc:
         fail(f"cannot import the port ({exc}); run from the repository root")
 
-    peak_ops = phase_device()
-    kern = phase_kernel(peak_ops)
-    onepass_err, onepass_ms, onepass_bound, prod = phase_onepass_kernels(
-        peak_ops)
-    k4_launches = phase_pregathered_path(*prod)
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s "
+            f"(total {time.perf_counter() - t_start:.1f} s)")
+        return out
+
+    peak_ops = timed("1", phase_device)
+    kern = timed("2", phase_kernel, peak_ops)
+    onepass_err, onepass_ms, onepass_bound, prod = timed(
+        "2b", phase_onepass_kernels, peak_ops)
+    k4_launches = timed("2c", phase_pregathered_path, *prod)
     del prod  # phase 4 reads the card's peak memory: free phase 2b's buffers
 
     import torch
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="_chip_smoke_", dir=str(ROOT)) as tmp:
-        paths, n_reads = simulate_bundle(Path(tmp), mb=10, n_svs=1000, cov=20.0)
-        launches, rev_launches, v3_prefix = phase_main_path(
-            Path(tmp), paths, n_reads)
-        dma_launches = phase_onepass_path(Path(tmp), paths, n_reads, v3_prefix)
+        paths, n_reads = timed("simulate", simulate_bundle, Path(tmp), 10,
+                               1000, 20.0)
+        scan = timed("2d", phase_dev_scan, peak_ops, paths)
+        launches, rev_launches, scan_launches, v3_prefix = timed(
+            "3", phase_main_path, Path(tmp), paths, n_reads)
+        dma_launches = timed("4", phase_onepass_path, Path(tmp), paths,
+                             n_reads, v3_prefix)
+    timed("5", phase_bench)
 
     source = "svjedi_tpu_torch/kernels/csrc/band_dp_onepass.cu"
     v3_source = "svjedi_tpu_torch/kernels/csrc/band_dp_v3.cu"
@@ -932,6 +1211,14 @@ def main() -> int:
         "bound_ms": onepass_bound["k4"][0],
         "bound_by": onepass_bound["k4"][1],
         "library_ms": None,
+    }, {
+        "name": "dev_scan",
+        "route": "cuda",
+        "source": "svjedi_tpu_torch/kernels/csrc/dev_scan.cu",
+        "replaces": "svjedi_tpu/align/dev_scan.py:62",
+        "launches": scan_launches,
+        "library_ms": None,
+        **scan,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

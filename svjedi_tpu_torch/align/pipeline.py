@@ -6,9 +6,11 @@ PyTorch counterpart of ``svjedi_tpu/align/pipeline.py`` on one
 ``gather`` on the CPU (the one-pass ``band_dp_batch``), ``v3`` on a CUDA
 device (the two-pass v3 kernel: forward pass on every candidate, reverse pass
 on the winners), or ``dma`` when named (the one-pass fused-fetch kernel).
-Seeding, chaining and the decoy competition run on the host, in this
-package's copies of the JAX package's host modules; the minimizer scan runs
-on the host.
+The minimizer scan runs on the device where the JAX package runs it there
+(:func:`use_device_scan`: ``align/dev_scan.py``, the CUDA kernel on a card,
+its plain version on the CPU), and on the host otherwise; lookup, chaining
+and the decoy competition run on the host, in this package's copies of the
+JAX package's host modules.
 
 The numpy-only helpers are verbatim copies of the JAX module's (that module
 imports JAX, so they cannot be imported from it); each names its source and
@@ -1130,8 +1132,21 @@ def _chunk_device_bytes(n_bases: int) -> int:
     cap = 1 << max(12, (max(1, n_bases) - 1).bit_length())
     return 3 * cap
 
-#: Whether the note that the device minimizer scan is not ported was shown.
-_seed_note_shown = False
+
+def use_device_scan(align_cfg: AlignConfig) -> bool:
+    """Whether seeding scans minimizers on the device, by the JAX rule:
+    ``device_seed`` is set, ``SVJT_DEVICE_SEED`` is not "0", and the native
+    host library has ``svt_chain5`` (which chains from the scan's bitmask).
+    """
+    from ..utils.native import load_native
+
+    native = load_native()
+    return (
+        align_cfg.device_seed
+        and os.environ.get("SVJT_DEVICE_SEED", "1") != "0"
+        and native is not None
+        and hasattr(native._lib, "svt_chain5")
+    )
 
 
 def align_and_count(
@@ -1155,33 +1170,25 @@ def align_and_count(
 
     Reads stream in fixed-size chunks. While chunk i's DP runs on
     ``device``, a seeder thread computes chunk i+1's candidates (host
-    numpy/C++ only); every device call stays on the calling thread.
+    numpy/C++ only, from the device scan's bitmask where
+    :func:`use_device_scan` holds); every device call, the scan included,
+    stays on the calling thread.
     Results are fetched in flushes bounded by a device-memory budget.
     ``engine`` is the DP engine (:func:`resolve_engine`; None: ``gather``
     on the CPU, ``v3`` on a CUDA device).
     """
     import time
 
+    from . import dev_scan
     from . import device as dev
 
-    global _seed_note_shown
     engine = resolve_engine(engine, device)
     if devices is not None:
         raise NotImplementedError(
             "devices= (the --data-shards chunk round-robin) is not ported "
             "yet: ROADMAP.md queue A, M9"
         )
-    if (
-        align_cfg.device_seed
-        and os.environ.get("SVJT_DEVICE_SEED", "1") != "0"
-        and not _seed_note_shown
-    ):
-        print(
-            "[align] note: the device minimizer scan is not ported yet; "
-            "seeding runs the host scan (same candidates)",
-            file=sys.stderr,
-        )
-        _seed_note_shown = True
+    use_dev_scan = use_device_scan(align_cfg)
 
     if timings is not None:
         timings.setdefault("seed_s", 0.0)
@@ -1334,13 +1341,19 @@ def align_and_count(
     )
     device_datas: Dict[int, object] = {}
 
-    def seed_chunk(chunk: ReadSet):
+    def seed_chunk(chunk: ReadSet, scan_out=None):
         """Seed + decoy-suppress one chunk (runs on the seeder thread).
 
-        Host scan, lookup and chaining only. Returns (candidates,
-        cpu_seconds).
+        Host lookup and chaining, after the host scan or (``scan_out``, the
+        device scan's pending bitmask) one wait for the bitmask's copy; no
+        device call. Returns (candidates, cpu_seconds).
         """
         ts0 = time.perf_counter()
+        bits = (
+            dev_scan.fetch_bitmask(scan_out)
+            if scan_out is not None
+            else None
+        )
         cands = seed_candidates(
             chunk, seed_index, chain_params=chain_params,
             threads=align_cfg.threads,
@@ -1349,6 +1362,7 @@ def align_and_count(
                 if decoy is not None and not sharded_decoy
                 else 0
             ),
+            bits=bits,
         )
         if decoy is not None and len(cands):
             if sharded_decoy:
@@ -1412,15 +1426,21 @@ def align_and_count(
         chunk_map: Dict[int, Tuple[int, ReadSet]] = {}
 
         def pull(ci: int) -> bool:
-            """Pull chunk ci, upload it and submit its seed."""
+            """Pull chunk ci, upload it, enqueue its device scan and submit
+            its seed. Runs on this thread, as every device call does."""
             item = next(chunk_iter, None)
             if item is None:
                 return False
             chunk_map[ci] = item
-            device_datas[ci] = dev.upload(
-                item[1].codes, panel, device, panel_cache
+            dd = dev.upload(item[1].codes, panel, device, panel_cache,
+                            offsets=item[1].offsets)
+            device_datas[ci] = dd
+            scan_out = (
+                dev_scan.dispatch_scan(dd, seed_index.k, seed_index.w)
+                if use_dev_scan
+                else None
             )
-            seed_futures[ci] = seeder.submit(seed_chunk, item[1])
+            seed_futures[ci] = seeder.submit(seed_chunk, item[1], scan_out)
             return True
 
         pull(0)

@@ -11,7 +11,8 @@ functions keep the JAX layout: transposed windows ``qT (bucket, P)`` and
 its plain PyTorch version, on CPU tensors; any other device raises.
 :func:`band_dp_v3_rev` runs the same kernel body's reverse build, which
 reads each end-clamped window backwards from its last valid row and runs
-only the rows the windows need; its plain version,
+only the rows the windows need (every row where the mismatch or a gap score
+is positive); its plain version,
 :func:`band_dp_v3_rev_ref`, is the forward pass on flipped windows.
 """
 
@@ -252,20 +253,22 @@ def band_dp_v3_rev(
     The caller must have masked qT beyond qe and tT beyond te. CUDA tensors
     launch the reverse kernel, which reads each window backwards from its
     row ``m - 1`` with no copy; ``m`` is the (P,) int32 count of valid read
-    rows (``qe + 1``), derived by :func:`valid_rows` when None. CPU tensors
-    take :func:`band_dp_v3_rev_ref`. Row bounds in ``n_valid`` are not used.
+    rows (``qe + 1``), derived by :func:`valid_rows` when None. Where the
+    mismatch or a gap score is positive, a sentinel row can change H, so
+    the kernel runs every row (``m = bucket`` for every problem, whatever
+    the caller passed): its addresses are then exactly the flipped windows
+    of :func:`band_dp_v3_rev_ref`. CPU tensors take
+    :func:`band_dp_v3_rev_ref`. Row bounds in ``n_valid`` are not used.
     """
     _check_shapes(qT, tT, bucket, band)
     if qT.device.type == "cpu":
         return band_dp_v3_rev_ref(qT, tT, bucket, band, params, n_valid)
     if qT.device.type != "cuda":
         raise ValueError(f"band_dp_v3_rev: unsupported device {qT.device}")
-    if max(params.mismatch, params.open_extend, params.gap_extend) > 0:
-        # A sentinel row must leave H at 0 for the rows the kernel skips.
-        raise ValueError(f"band_dp_v3_rev kernel needs mismatch and gap "
-                         f"scores <= 0, got {params}")
     P = qT.shape[1]
-    if m is None:
+    if max(params.mismatch, params.open_extend, params.gap_extend) > 0:
+        m = torch.full((P,), bucket, dtype=torch.int32, device=qT.device)
+    elif m is None:
         m = valid_rows(qT)
     if m.shape != (P,) or m.dtype != torch.int32 or m.device != qT.device:
         raise ValueError(f"m must be ({P},) int32 on {qT.device}")

@@ -160,6 +160,8 @@ def load_library() -> ctypes.CDLL:
             i32, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.band_dp_dma_launch.restype = i32
+        lib.dev_scan_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, ptr, ptr]
+        lib.dev_scan_launch.restype = i32
         lib.svjt_cuda_error_string.argtypes = [i32]
         lib.svjt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -77,7 +77,11 @@
 // band_dp_v3_rev_launch. It reads each problem's end-clamped windows
 // backwards from its last valid row (m' = qe + 1 of the forward pass), with
 // no copy, and runs only the warp's largest m' rows, where the flipped
-// windows needed all bucket rows. Its bound is the forward pass's: 9 ops
+// windows needed all bucket rows. Where the mismatch, open + extend or
+// extend is positive, a sentinel row can change H, so the wrapper
+// (kernels/band_dp_v3.py:band_dp_v3_rev) passes m' = bucket for every
+// problem: every row runs, and the addresses below are exactly those of the
+// flipped windows. Its bound is the forward pass's: 9 ops
 // per cell over sum(m') rows. On an H100 80GB HBM3 at 700 W (chip_smoke.py
 // phase 2, P = 32768, bucket 2048, m' = qe + 1) it took 3.656 ms against
 // that 2.887 ms bound (79.0%), where flipping and rolling the windows and

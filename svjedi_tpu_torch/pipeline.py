@@ -7,7 +7,8 @@ Counterpart of ``svjedi_tpu/pipeline.py`` with the same artifacts on disk
 change during a run: ``cuda:0`` unless the caller names the CPU; with no
 card visible and no device named, the run raises.
 The DP engine follows the device unless named (``align/pipeline.py``:
-``resolve_engine``).
+``resolve_engine``); the minimizer scan runs on the device by the JAX rule
+(``use_device_scan``), recorded as ``seed_path`` in the stats.
 """
 
 from __future__ import annotations
@@ -39,8 +40,8 @@ from .io.fasta import read_fasta
 from .io.fastq import read_reads
 from .utils.native import load_native
 from .utils.stats import RunStats
-from .align.pipeline import align_and_count, resolve_engine
-from .kernels import band_dp_dma, band_dp_v3
+from .align.pipeline import align_and_count, resolve_engine, use_device_scan
+from .kernels import band_dp_dma, band_dp_v3, dev_scan
 
 
 def select_device() -> torch.device:
@@ -249,6 +250,7 @@ def run_pipeline(
         stats.set("n_reads", reads.n_reads)
         stats.set("read_bases", int(reads.lengths.sum()))
 
+    scan_launches0 = dev_scan.launches
     launches0 = band_dp_v3.launches
     rev_launches0 = band_dp_v3.rev_launches
     dma_launches0 = band_dp_dma.launches
@@ -270,12 +272,14 @@ def run_pipeline(
     if cfg.profile_dir is not None:
         Path(cfg.profile_dir).mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(Path(cfg.profile_dir) / "trace.json"))
-    stats.set("seed_path", "host")
+    stats.set("seed_path",
+              "device" if use_device_scan(cfg.align) else "host")
     # The host library serves seeding and chaining; without it the numpy
     # path runs (kernels/build.py:build_native builds it). Recorded is the
     # file the loader opened.
     native = load_native()
     stats.set("native_lib", native._lib._name if native else None)
+    stats.set("dev_scan_launches", dev_scan.launches - scan_launches0)
     stats.set("band_dp_v3_launches", band_dp_v3.launches - launches0)
     stats.set("band_dp_v3_rev_launches", band_dp_v3.rev_launches - rev_launches0)
     stats.set("band_dp_dma_launches", band_dp_dma.launches - dma_launches0)

@@ -26,6 +26,7 @@ from svjedi_tpu.config import resolve_min_count_density
 from svjedi_tpu.io import sim
 from svjedi_tpu_torch.align import device as tdev
 from svjedi_tpu_torch.align import pipeline as tpipe
+from test_torch_dev_scan import native_installed, port_native  # noqa: F401
 
 # The plain DP runs thousands of tiny ops per call: one thread each is
 # faster than many, and keeps parallel test workers off each other's cores.
@@ -97,9 +98,16 @@ def _args(b):
 
 @pytest.fixture(scope="module")
 def runs(bundle):
+    """Both packages on the numpy host path (no native library): the two
+    packages' native and numpy paths differ in a few winners' mapq and
+    anchor spans, so both sides must take the same one."""
+    from svjedi_tpu.utils import native as jnative
+    from svjedi_tpu_torch.utils import native as tnative
+
     j, t = bundle["svjedi_tpu"], bundle["svjedi_tpu_torch"]
-    return (jpipe.align_and_count(*_args(j), decoy=j["decoy"]),
-            tpipe.align_and_count(*_args(t), decoy=t["decoy"], device=CPU))
+    with native_installed(None, jnative, tnative):
+        return (jpipe.align_and_count(*_args(j), decoy=j["decoy"]),
+                tpipe.align_and_count(*_args(t), decoy=t["decoy"], device=CPU))
 
 
 def test_port_inputs_are_the_ports_own_types(bundle):
@@ -123,6 +131,54 @@ def test_align_and_count_matches_jax(runs):
     assert tcounts == jcounts
     assert taudit == jaudit
     assert sum(v[0] + v[1] for v in tcounts.values()) > 0
+
+
+def test_align_and_count_with_device_scan_matches_jax(bundle, runs,
+                                                     port_native,
+                                                     monkeypatch):
+    """With a native library that has svt_chain5 both packages scan
+    minimizers on the device (JAX's XLA scan; the port's plain version on
+    the CPU) and chain from the bitmask: every output stays exact. Counts
+    also equal the numpy host path's."""
+    from svjedi_tpu.align import dev_scan as jscan
+    from svjedi_tpu.utils import native as jnative
+    from svjedi_tpu_torch.align import dev_scan as tscan
+    from svjedi_tpu_torch.utils import native as tnative
+
+    scans = []
+    for mod in (jscan, tscan):
+        real = mod.dispatch_scan
+        monkeypatch.setattr(mod, "dispatch_scan", lambda *a, _r=real, _m=mod:
+                            scans.append(_m) or _r(*a))
+    j, t = bundle["svjedi_tpu"], bundle["svjedi_tpu_torch"]
+    with native_installed(port_native, jnative, tnative):
+        assert tpipe.use_device_scan(t["cfg"])
+        jres = jpipe.align_and_count(*_args(j), decoy=j["decoy"])
+        tres = tpipe.align_and_count(*_args(t), decoy=t["decoy"], device=CPU)
+    assert jscan in scans and tscan in scans
+    (jcounts, jaudit, jw), (tcounts, taudit, tw) = jres, tres
+    assert len(tw.read) == len(jw.read) > 50
+    for f in WINNER_FIELDS:
+        np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f),
+                                      err_msg=f)
+    assert tcounts == jcounts == runs[0][0]
+    assert taudit == jaudit
+
+
+def test_use_device_scan_follows_the_jax_rule(port_native, monkeypatch):
+    from svjedi_tpu_torch.utils import native as tnative
+
+    cfg = tpipe.AlignConfig()
+    monkeypatch.delenv("SVJT_DEVICE_SEED", raising=False)
+    with native_installed(port_native, tnative):
+        assert tpipe.use_device_scan(cfg)
+        assert not tpipe.use_device_scan(tpipe.AlignConfig(device_seed=False))
+        monkeypatch.setenv("SVJT_DEVICE_SEED", "0")
+        assert not tpipe.use_device_scan(cfg)
+    monkeypatch.delenv("SVJT_DEVICE_SEED")
+    monkeypatch.setattr(tnative, "_LIB", None)
+    monkeypatch.setattr(tnative, "_LIB_SEARCHED", True)
+    assert not tpipe.use_device_scan(cfg)
 
 
 @pytest.mark.parametrize("engine", ["v3", "dma"])

@@ -179,7 +179,7 @@ def _rev_windows(seed: int, bucket: int):
     return qT2, tT2, (fwd[:, 1] + 1).astype(np.int32)
 
 
-def _rev_by_addressing(qT2, tT2, m, bucket, n_valid):
+def _rev_by_addressing(qT2, tT2, m, bucket, n_valid, params=DPParams()):
     """The reverse kernel's addressing in numpy: reversed row r reads row
     m - 1 - r and reversed cell k target row m - 1 - r + BAND - 1 - k (both
     sentinel below 0); the plain forward pass on those windows, mapped back
@@ -190,7 +190,7 @@ def _rev_by_addressing(qT2, tT2, m, bucket, n_valid):
     ti = m[None, :] + BAND - 2 - np.arange(bucket + BAND)[:, None]
     tR = np.where(ti >= 0, tT2[ti.clip(0), cols], 4).astype(np.int8)
     out = v3.band_dp_v3_fwd_ref(torch.from_numpy(qR), torch.from_numpy(tR),
-                                bucket, BAND, DPParams(), n_valid).numpy()
+                                bucket, BAND, params, n_valid).numpy()
     scored = out[:, 1] >= 0
     qs = m - 1 - out[:, 1]
     ts = qs + BAND - 1 - (out[:, 2] - out[:, 1])
@@ -221,6 +221,35 @@ def test_rev_with_m_matches_jax(bucket):
             assert tuple(got[p]) == none
     model = _rev_by_addressing(qT2, tT2, m, bucket, REV_N_VALID)
     np.testing.assert_array_equal(model, got)
+
+
+#: Scores where a sentinel row can change H (a positive mismatch, open +
+#: extend or extend): the reverse kernel then runs every row, m = bucket.
+POSITIVE_SCORES = {"mismatch1": dict(mismatch=1),
+                   "open_extend1": dict(gap_open=3, gap_extend=-2),
+                   "extend1": dict(gap_extend=1)}
+
+
+@pytest.mark.parametrize("scores", POSITIVE_SCORES.values(),
+                         ids=POSITIVE_SCORES.keys())
+def test_rev_positive_scores_every_row_matches_jax(scores):
+    """At such scores the reverse kernel's backward addressing with m =
+    bucket for every problem (numpy model) equals the JAX reverse pass, and
+    so does the port's reverse pass on the CPU."""
+    bucket = 256
+    params = DPParams(**scores)
+    qT2, tT2, _ = _rev_windows(41, bucket)
+    ref = np.asarray(jax_v3.band_dp_v3_rev(
+        jnp.asarray(qT2), jnp.asarray(tT2), bucket, BAND,
+        JaxDPParams(**scores), n_valid=REV_N_VALID, interpret=True,
+    ))
+    full = np.full(REV_P, bucket, dtype=np.int32)
+    model = _rev_by_addressing(qT2, tT2, full, bucket, REV_N_VALID, params)
+    np.testing.assert_array_equal(model[:REV_N_VALID], ref[:REV_N_VALID])
+    got = v3.band_dp_v3_rev(torch.from_numpy(qT2), torch.from_numpy(tT2),
+                            bucket, BAND, params, REV_N_VALID).numpy()
+    np.testing.assert_array_equal(got[:REV_N_VALID], ref[:REV_N_VALID])
+    assert (ref[:REV_N_VALID, 0] > 0).any()
 
 
 def test_two_pass_against_one_pass_reference():
@@ -316,3 +345,31 @@ def test_cuda_rev_kernel_matches_plain_version(cuda_device, band, scores):
         torch.cuda.synchronize()
         np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
     assert v3.rev_launches == rev + 2 and v3.launches == launches + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band", [128, 256])
+@pytest.mark.parametrize("scores", POSITIVE_SCORES.values(),
+                         ids=POSITIVE_SCORES.keys())
+def test_cuda_rev_kernel_positive_scores_match_plain_version(cuda_device,
+                                                             scores, band):
+    """The reverse kernel takes every score the JAX reverse pass takes: at a
+    positive mismatch or gap score it runs every row, whatever m it is
+    given, and equals the flipped forward pass."""
+    bucket = 1152
+    q, t = _problems(43, bucket, P=REV_P, band=band, m_fix={4: 40, 5: bucket})
+    params = DPParams(**scores)
+    qT = torch.from_numpy(q.T.copy()).to(cuda_device)
+    tT = torch.from_numpy(t.T.copy()).to(cuda_device)
+    fwd = v3.band_dp_v3_fwd_ref(qT, tT, bucket, band, params)
+    qe, te = fwd[:, 1], fwd[:, 2]
+    rows = torch.arange(bucket, device=cuda_device)[:, None]
+    qT2 = torch.where(rows <= qe[None], qT, 4).to(torch.int8)
+    trows = torch.arange(bucket + band, device=cuda_device)[:, None]
+    tT2 = torch.where(trows <= te[None], tT, 4).to(torch.int8)
+    ref = v3.band_dp_v3_rev_ref(qT2, tT2, bucket, band, params, REV_N_VALID)
+    for m in (qe + 1, None):
+        got = v3.band_dp_v3_rev(qT2, tT2, bucket, band, params, REV_N_VALID,
+                                m=m)
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())

@@ -24,6 +24,7 @@ from svjedi_tpu_torch.cli import main as torch_cli
 from svjedi_tpu_torch.config import DistConfig, PipelineConfig
 
 from tests.conftest import REPO_ROOT
+from test_torch_dev_scan import native_installed, port_native  # noqa: F401
 
 # The plain DP runs thousands of tiny ops per call: one thread each is
 # faster than many, and keeps parallel test workers off each other's cores.
@@ -80,7 +81,10 @@ def test_cli_run_matches_jax_vcf(single_runs):
     assert ours == theirs
     assert b"0/1" in ours or b"1/1" in ours
     stats = json.loads((tmp / "svjedi_tpu_torch_stats.json").read_text())
-    assert stats["counters"]["seed_path"] == "host"
+    # The device scan runs where the native library (with svt_chain5) does.
+    assert stats["counters"]["seed_path"] == (
+        "device" if stats["counters"]["native_lib"] else "host")
+    assert stats["counters"]["dev_scan_launches"] == 0  # the plain version
     assert stats["counters"]["device"] == "cpu"
     assert stats["counters"]["engine"] == "gather"  # the JAX CPU engine
     assert stats["counters"]["band_dp_v3_launches"] == 0
@@ -97,6 +101,34 @@ def test_cli_run_matches_jax_alignments(single_runs, suffix):
     theirs = (single_runs / f"svjedi_tpu{suffix}").read_bytes()
     assert len(ours) > 0
     assert ours == theirs
+
+
+def test_cli_run_with_device_scan_matches_jax(bundle, single_runs,
+                                             port_native):
+    """With a native library both packages' ``run --gaf`` scan minimizers
+    on the device (JAX's XLA scan; the port's plain version on the CPU)
+    and chain from the bitmask: GAF, audit table and VCF byte-equal. The
+    VCF also equals the host-scan runs'."""
+    from svjedi_tpu.cli import main as jax_cli
+    from svjedi_tpu.utils import native as jnative
+    from svjedi_tpu_torch.utils import native as tnative
+
+    tmp, paths = bundle
+    base = ["run", "-v", str(paths["vcf"]), "-r", str(paths["ref"]),
+            "-q", str(paths["reads"]), "--gaf"]
+    with native_installed(port_native, jnative, tnative):
+        assert jax_cli([*base, "-p", str(tmp / "jax_scan")]) == 0
+        assert torch_cli([*base, "-p", str(tmp / "scan"),
+                          "--device", "cpu"]) == 0
+    stats = json.loads((tmp / "scan_stats.json").read_text())
+    assert stats["counters"]["seed_path"] == "device"
+    assert stats["counters"]["native_lib"] == port_native
+    assert stats["counters"]["dev_scan_launches"] == 0
+    for suffix in ("_genotype.vcf", ".gaf", "_informative_aln.json"):
+        theirs = (tmp / f"jax_scan{suffix}").read_bytes()
+        assert (tmp / f"scan{suffix}").read_bytes() == theirs, suffix
+    assert (tmp / "scan_genotype.vcf").read_bytes() == \
+        (single_runs / "svjedi_tpu_genotype.vcf").read_bytes()
 
 
 def test_shard_merge_and_resume_match_single_run(bundle, single_runs):
@@ -192,6 +224,15 @@ assert out.shape == (128, 3) and bool((out[:, 0] == 128).all()), out[:4]
 from svjedi_tpu_torch.kernels.band_dp import band_dp_onepass
 one = band_dp_onepass(q.T.contiguous(), t.T.contiguous(), 128)
 assert bool((one["score"] == 128).all()), one["score"][:4]
+from types import SimpleNamespace
+from svjedi_tpu_torch.align import dev_scan, device
+codes = rng.integers(0, 4, 3000).astype(np.int8)
+dd = device.upload(codes, SimpleNamespace(paths=[]), torch.device("cpu"),
+                   offsets=np.array([0, 1000, 3000]))
+bits = dev_scan.fetch_bitmask(dev_scan.dispatch_scan(dd, 15, 10))
+rid, _ = dev_scan.bitmask_positions(bits, np.array([0, 1000, 3000]))
+assert len(rid) > 100 and set(rid.tolist()) == {0, 1}, rid
+import svjedi_tpu_torch.bench
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
 assert not any(m == "svjedi_tpu" or m.startswith("svjedi_tpu.") for m in loaded)
