@@ -71,8 +71,31 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 5. Bench: ``SVJT_BENCH_CONFIG=scale python -m svjedi_tpu_torch.bench`` as
    a subprocess; it must exit 0 and print one JSON line with a positive
    ``scale_reads_per_s_per_chip``; its stderr timings are printed.
+6. Distribution layer, in this process, at full width: the production
+   problem (``svjedi_tpu_torch.entry.production_problem``) built from the
+   first 16,384 reads of the 10 Mb bundle (bucket 2048, candidates with
+   m <= 2048, laid out for 2 data shards); the sharded count step
+   (``dist/engine.py:make_sharded_count_step_v3``) on a 2 x 2 mesh of
+   ``cuda:0`` with engine ``v3`` must launch K1 and K1' and equal
+   ``dp_filter_count_v3(engine="v3i")`` (the plain versions, on the card)
+   exactly, with a positive count; both timed, beside the one-device
+   ``v3`` step. Then ``run_pipeline`` with ``--data-shards 2
+   --graph-shards 2`` on four entries of ``cuda:0``, on phase 3's files:
+   its VCF byte-equal to phase 3's, accuracy 100.0, ``data_shards`` 2,
+   ``mesh`` "2x2", K1 and K1' launched, ``seed_path`` "device", no fault
+   warning.
+7. Multihost: two processes of ``python -m svjedi_tpu_torch run
+   --multihost`` in a gloo group on 127.0.0.1 (``MASTER_ADDR``,
+   ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``), both on ``cuda:0``, each
+   aligning half of the reads, with a time limit that kills both; process
+   0's VCF must equal a single-process run's byte for byte. On the 10 Mb
+   bundle (the single run is phase 3's) unless phase 3's wall time says
+   the script would pass 1,000 s; then on a 1 Mb / 100 SV / 20x bundle
+   with its own single run.
 
-Every phase prints its seconds.
+Every phase prints its seconds. The kernels' launches in the JSON record
+are those of the main path: phases 3 and 6 for K1 and K1', phase 4 for
+K3, phase 2c for K4, phase 3 for D1.
 
 Everything runs through ``svjedi_tpu_torch``; nothing of JAX or of the JAX
 package is imported. The second-to-last line is the kernels' JSON record;
@@ -1130,6 +1153,270 @@ def phase_bench(timeout: int = 900) -> float:
     return float(result["value"])
 
 
+# ---- phase 6 ------------------------------------------------------------------
+
+
+def cuda_wall_s(fn, reps: int) -> float:
+    """Median host seconds of ``fn()`` to a synchronised card."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def phase_dist_step(paths):
+    """The sharded count step at production width on a 2 x 2 mesh of
+    cuda:0; returns its K1 and K1' launches."""
+    import torch
+
+    from svjedi_tpu_torch.dist.engine import (
+        assert_no_group_straddle, dp_filter_count_v3,
+        make_sharded_count_step_v3,
+    )
+    from svjedi_tpu_torch.dist.mesh import make_mesh
+    from svjedi_tpu_torch.entry import production_problem
+    from svjedi_tpu_torch.io.fasta import read_fasta
+    from svjedi_tpu_torch.io.fastq import read_reads
+    from svjedi_tpu_torch.kernels import band_dp_v3
+
+    dev = torch.device("cuda:0")
+    t0 = time.perf_counter()
+    reads = read_reads(str(paths["reads"]))
+    reads = reads.slice(0, min(reads.n_reads, 16384))
+    prob = production_problem(
+        data_shards=2, device=dev, reads=reads,
+        genome=(read_fasta(paths["ref"]), str(paths["vcf"])), bucket=2048,
+    )
+    assert_no_group_straddle(prob["group"], prob["meta"], 2)
+    if not all(prob["real_per_shard"]):
+        fail(f"a data shard holds no candidate: {prob['real_per_shard']}")
+    P = prob["meta"].shape[1]
+    args = (*prob["data"].packed_words(),
+            *(torch.from_numpy(prob[k]).to(dev)
+              for k in ("meta", "path_start", "group", "cand_path")),
+            prob["owned"])
+    kw = dict(bucket=prob["bucket"], band=prob["band"], params=prob["params"],
+              n_tags=prob["n_tags"])
+    log(f"[dist] production problem: {reads.n_reads} reads, {prob['n_real']} "
+        f"candidates ({prob['real_per_shard']} per data shard, P {P}), "
+        f"{prob['n_groups']} groups, {prob['n_tags']} tags, bucket "
+        f"{prob['bucket']} ({time.perf_counter() - t0:.1f} s)")
+
+    mesh = make_mesh(data_shards=2, graph_shards=2, devices=[dev] * 4)
+    step = make_sharded_count_step_v3(
+        mesh, n_groups_per_shard=prob["n_groups"], engine="v3", **kw)
+    band_dp_v3.launches = band_dp_v3.rev_launches = 0
+    got = step(*args)
+    torch.cuda.synchronize()
+    rev_launches = band_dp_v3.rev_launches
+    fwd_launches = band_dp_v3.launches - rev_launches
+    if fwd_launches <= 0 or rev_launches <= 0:
+        fail(f"the sharded step launched K1 {fwd_launches} and K1' "
+             f"{rev_launches} times")
+
+    def single(engine):
+        return dp_filter_count_v3(*args, n_groups=prob["n_groups"],
+                                  engine=engine, **kw)["counts"]
+
+    t0 = time.perf_counter()
+    ref = single("v3i")
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(got, ref):
+        n_bad = int((got != ref).sum())
+        fail(f"the sharded step's counts differ from the plain one-device "
+             f"step in {n_bad} entries")
+    total = int(got.sum())
+    if total <= 0:
+        fail("the sharded step counted no support")
+    sharded_s = cuda_wall_s(lambda: step(*args), reps=3)
+    single_s = cuda_wall_s(lambda: single("v3"), reps=3)
+    log(f"[dist] sharded step (2 x 2 mesh of cuda:0, v3) == one-device step "
+        f"on the plain versions (v3i): counts exact, sum {total}; K1 "
+        f"launches {fwd_launches}, K1' {rev_launches}; sharded step "
+        f"{sharded_s:.3f} s, one-device v3 step {single_s:.3f} s, plain "
+        f"(v3i) {plain_s:.3f} s (host clock to a synchronised card, medians "
+        f"of 3, 3 and 1 calls)")
+    del prob, args, got, ref
+    torch.cuda.empty_cache()
+    return fwd_launches, rev_launches
+
+
+def phase_dist_run(out: Path, paths, v3_prefix: Path):
+    """``run_pipeline`` with --data-shards 2 --graph-shards 2 on four
+    entries of cuda:0; returns its K1 and K1' launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from svjedi_tpu_torch.config import DistConfig, PipelineConfig
+    from svjedi_tpu_torch.evals.contingency import contingency_report
+    from svjedi_tpu_torch.kernels import band_dp_v3
+    from svjedi_tpu_torch.pipeline import run_pipeline
+
+    dev = torch.device("cuda:0")
+    prefix = out / "dist"
+    cfg = PipelineConfig(vcf=paths["vcf"], ref=paths["ref"],
+                         reads=(str(paths["reads"]),), prefix=str(prefix),
+                         dist=DistConfig(data_shards=2, graph_shards=2))
+    err = io.StringIO()
+    band_dp_v3.launches = band_dp_v3.rev_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        run_pipeline(cfg, device=dev, devices=[dev] * 4)
+    wall = time.perf_counter() - t0
+    rev_launches = band_dp_v3.rev_launches
+    fwd_launches = band_dp_v3.launches - rev_launches
+    stderr = err.getvalue()
+    for line in stderr.splitlines()[-8:]:
+        log(f"[dist-run] stderr: {line}")
+    faults = [w for w in FAULT_WARNINGS if w in stderr]
+    if faults:
+        fail(f"fault warnings in the --data-shards/--graph-shards run: "
+             f"{faults}")
+    if fwd_launches <= 0 or rev_launches <= 0:
+        fail(f"the --data-shards/--graph-shards run launched K1 "
+             f"{fwd_launches} and K1' {rev_launches} times")
+    with open(f"{prefix}_stats.json") as fh:
+        stats = json.load(fh)
+    counters, timings = stats["counters"], stats["timings_s"]
+    for key, want in (("data_shards", 2), ("mesh", "2x2"),
+                      ("seed_path", "device"), ("engine", "v3")):
+        if counters.get(key) != want:
+            fail(f"the --data-shards/--graph-shards run recorded {key} "
+                 f"{counters.get(key)!r}, not {want!r}")
+    vcf = Path(f"{prefix}_genotype.vcf")
+    report = contingency_report(paths["vcf"], str(vcf))
+    acc = re.search(r"accuracy: ([\d.]+)", report)
+    log("[dist-run] " + " | ".join(report.strip().splitlines()))
+    if acc is None or float(acc.group(1)) != 100.0:
+        fail("--data-shards/--graph-shards genotyping accuracy is not 100.0")
+    if vcf.read_bytes() != Path(f"{v3_prefix}_genotype.vcf").read_bytes():
+        fail("the --data-shards 2 --graph-shards 2 VCF differs from phase 3's")
+    log(f"[dist-run] run wall {wall:.1f} s; align stage "
+        f"{float(timings['align']):.2f} s, mesh_count "
+        f"{float(timings['mesh_count']):.3f} s; VCF byte-equal to phase 3's; "
+        f"K1 launches {fwd_launches}, K1' {rev_launches}; dev_scan launches "
+        f"{counters.get('dev_scan_launches')}; max_memory_allocated "
+        f"{counters.get('device_max_memory_allocated')} bytes")
+    return fwd_launches, rev_launches
+
+
+# ---- phase 7 ------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def phase_multihost(out: Path, paths, single_vcf: Path, mb: int,
+                    timeout: int = 600):
+    """Two ``run --multihost`` processes in a gloo group on cuda:0; process
+    0's VCF must equal ``single_vcf``."""
+    prefix = out / f"mh{mb}"
+    cmd = [sys.executable, "-m", "svjedi_tpu_torch", "run",
+           "-v", str(paths["vcf"]), "-r", str(paths["ref"]),
+           "-q", str(paths["reads"]), "-p", str(prefix), "--multihost",
+           "--no-artifacts"]
+    port = free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE="2", RANK=str(rank))
+        env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+        logs.append((out / f"mh{mb}_rank{rank}.out",
+                     out / f"mh{mb}_rank{rank}.err"))
+        with open(logs[-1][0], "w") as o, open(logs[-1][1], "w") as e:
+            procs.append(subprocess.Popen(cmd, cwd=str(ROOT), env=env,
+                                          stdout=o, stderr=e, text=True))
+    # Wait for both; a process that fails or outlives the limit ends both
+    # (its peer would wait at the group's barrier).
+    try:
+        while any(proc.poll() is None for proc in procs):
+            if (any(proc.returncode not in (None, 0) for proc in procs)
+                    or time.perf_counter() - t0 > timeout):
+                break
+            time.sleep(0.5)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    for rank, (proc, (_, err_path)) in enumerate(zip(procs, logs)):
+        stderr = err_path.read_text()
+        for line in stderr.splitlines()[-6:]:
+            log(f"[multihost] rank {rank} stderr: {line}")
+        if proc.returncode != 0:
+            fail(f"--multihost process {rank} exited {proc.returncode} after "
+                 f"{wall:.1f} s (limit {timeout} s)")
+        faults = [w for w in FAULT_WARNINGS if w in stderr]
+        if faults:
+            fail(f"fault warnings in --multihost process {rank}: {faults}")
+    stats, timings = [], []
+    for name in (f"{prefix}_stats.json", f"{prefix}.host1_stats.json"):
+        with open(name) as fh:
+            run = json.load(fh)
+        stats.append(run["counters"])
+        timings.append(run["timings_s"])
+    for rank, counters in enumerate(stats):
+        if counters.get("process") != f"{rank}/2":
+            fail(f"--multihost process {rank} recorded process "
+                 f"{counters.get('process')!r}")
+    if Path(f"{prefix}_genotype.vcf").read_bytes() != single_vcf.read_bytes():
+        fail("the two-process --multihost VCF differs from the single run's")
+    log(f"[multihost] two processes on {stats[0].get('device')} and "
+        f"{stats[1].get('device')}, reads {stats[0].get('process_block')} and "
+        f"{stats[1].get('process_block')}: process 0's VCF byte-equal to the "
+        f"single-process run's ({mb} Mb); wall {wall:.1f} s; align stage "
+        + " and ".join(f"{float(t['align']):.2f} s" for t in timings)
+        + ", count_allreduce (barrier wait included) "
+        + " and ".join(f"{float(t['count_allreduce']):.3f} s"
+                       for t in timings)
+        + "; band_dp_v3 launches (reverse kernel) "
+        + " and ".join(f"{c.get('band_dp_v3_launches')} "
+                       f"({c.get('band_dp_v3_rev_launches')})" for c in stats))
+    return wall
+
+
+def phase_multihost_any(out: Path, paths, v3_prefix: Path, t_start: float,
+                        phase3_wall: float):
+    """Phase 7 on the 10 Mb bundle if the script's clock allows, else on a
+    1 Mb bundle beside its own single-process run."""
+    budget = 1000.0
+    # Two processes on one card and 8 cores: allow twice phase 3's wall.
+    if time.perf_counter() - t_start + 2 * phase3_wall < budget:
+        return phase_multihost(out, paths, Path(f"{v3_prefix}_genotype.vcf"),
+                               10)
+    small = out / "small"
+    small.mkdir()
+    spaths, n_reads = simulate_bundle(small, 1, 100, 20.0)
+    cmd = [sys.executable, "-m", "svjedi_tpu_torch", "run",
+           "-v", str(spaths["vcf"]), "-r", str(spaths["ref"]),
+           "-q", str(spaths["reads"]), "-p", str(small / "single"),
+           "--no-artifacts"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"the 1 Mb single-process run exited {proc.returncode}: "
+             f"{proc.stderr[-500:]}")
+    return phase_multihost(small, spaths, small / "single_genotype.vcf", 1)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     sys.path.insert(0, str(ROOT))
@@ -1163,11 +1450,18 @@ def main() -> int:
         paths, n_reads = timed("simulate", simulate_bundle, Path(tmp), 10,
                                1000, 20.0)
         scan = timed("2d", phase_dev_scan, peak_ops, paths)
+        t3 = time.perf_counter()
         launches, rev_launches, scan_launches, v3_prefix = timed(
             "3", phase_main_path, Path(tmp), paths, n_reads)
+        phase3_wall = time.perf_counter() - t3
         dma_launches = timed("4", phase_onepass_path, Path(tmp), paths,
                              n_reads, v3_prefix)
-    timed("5", phase_bench)
+        timed("5", phase_bench)
+        step_fwd, step_rev = timed("6", phase_dist_step, paths)
+        run_fwd, run_rev = timed("6 run", phase_dist_run, Path(tmp), paths,
+                                 v3_prefix)
+        timed("7", phase_multihost_any, Path(tmp), paths, v3_prefix, t_start,
+              phase3_wall)
 
     source = "svjedi_tpu_torch/kernels/csrc/band_dp_onepass.cu"
     v3_source = "svjedi_tpu_torch/kernels/csrc/band_dp_v3.cu"
@@ -1176,7 +1470,7 @@ def main() -> int:
         "route": "cuda",
         "source": v3_source,
         "replaces": "svjedi_tpu/kernels/band_dp_v3.py:53",
-        "launches": launches - rev_launches,
+        "launches": launches - rev_launches + step_fwd + run_fwd,
         "library_ms": None,
         **kern["fwd"],
     }, {
@@ -1184,7 +1478,7 @@ def main() -> int:
         "route": "cuda",
         "source": v3_source,
         "replaces": "svjedi_tpu/kernels/band_dp_v3.py:368",
-        "launches": rev_launches,
+        "launches": rev_launches + step_rev + run_rev,
         "library_ms": None,
         **kern["rev"],
     }, {

@@ -78,10 +78,12 @@ def dispatch_scan(device_data, k: int, w: int) -> PendingBitmask:
     )
     if bits.device.type != "cuda":
         return PendingBitmask(bits)
-    host = torch.empty(bits.shape, dtype=torch.uint8, pin_memory=True)
-    host.copy_(bits, non_blocking=True)
-    ready = torch.cuda.Event()
-    ready.record(torch.cuda.current_stream(bits.device))
+    # The copy and its event on the scan's device, whichever card that is.
+    with torch.cuda.device(bits.device):
+        host = torch.empty(bits.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(bits, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(bits.device))
     return PendingBitmask(host, ready)
 
 

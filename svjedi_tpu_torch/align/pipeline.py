@@ -314,7 +314,8 @@ def dispatch_chunk(
     params = _dp_params(cfg)
     engine = resolve_engine(engine, dev.device_of(device_data))
     disp = ChunkDispatch(
-        cands=cands, rw_start=np.zeros(len(cands), dtype=np.int64)
+        cands=cands, rw_start=np.zeros(len(cands), dtype=np.int64),
+        device_data=device_data,
     )
     if len(cands) == 0:
         return disp
@@ -333,7 +334,6 @@ def dispatch_chunk(
     disp.t_start = t_start
     disp.t_lo = t_lo
     disp.t_hi = t_hi
-    disp.device_data = device_data
     disp.bucket_of_cand = np.zeros(len(cands), dtype=np.int64)
     disp.bucket_of_cand[order] = bucket_of
 
@@ -1176,6 +1176,13 @@ def align_and_count(
     Results are fetched in flushes bounded by a device-memory budget.
     ``engine`` is the DP engine (:func:`resolve_engine`; None: ``gather``
     on the CPU, ``v3`` on a CUDA device).
+
+    ``devices``: data-parallel mode (``--data-shards``). Chunk ``i`` is
+    uploaded, scanned, DP-scored, reverse-passed and audited on
+    ``devices[i % len(devices)]`` (the panel is uploaded once per device,
+    one cache each); the per-(SV, allele) count merge, the pipeline's only
+    cross-read reduction, is an associative sum over chunks on the host, so
+    the devices' results combine exactly.
     """
     import time
 
@@ -1183,11 +1190,7 @@ def align_and_count(
     from . import device as dev
 
     engine = resolve_engine(engine, device)
-    if devices is not None:
-        raise NotImplementedError(
-            "devices= (the --data-shards chunk round-robin) is not ported "
-            "yet: ROADMAP.md queue A, M9"
-        )
+    devices = list(devices) if devices else [device]
     use_dev_scan = use_device_scan(align_cfg)
 
     if timings is not None:
@@ -1200,7 +1203,7 @@ def align_and_count(
     counts: Dict[str, List[int]] = {}
     audit: Dict[str, List[List[str]]] = {}
     winner_parts: List[Winners] = []
-    panel_cache: Dict = {}
+    panel_caches: List[Dict] = [{} for _ in devices]
     from ..config import resolve_min_count_density
 
     _min_density = resolve_min_count_density(genotype_cfg, align_cfg)
@@ -1234,7 +1237,8 @@ def align_and_count(
         winners = prune_secondaries(winners, chunk, align_cfg)
         winners = cross_cluster_prune(winners, chunk)
         if collect_audit:
-            compute_winner_stats(chunk, panel, winners, align_cfg, device)
+            compute_winner_stats(chunk, panel, winners, align_cfg,
+                                 dev.device_of(disp.device_data))
         chunk_counts, chunk_audit = count_support(
             panel, winners, chunk, genotype_cfg.d_over, collect_audit,
             min_density=_min_density,
@@ -1271,7 +1275,10 @@ def align_and_count(
                     if attempt == 0:
                         device_data = disp.device_data
                     else:
-                        device_data = dev.upload(chunk.codes, panel, device, {})
+                        device_data = dev.upload(
+                            chunk.codes, panel,
+                            dev.device_of(disp.device_data), {},
+                        )
                     d2 = dispatch_chunk(
                         chunk, panel, index, disp.cands, align_cfg,
                         device_data, batch_size=batch_size, engine=engine,
@@ -1432,8 +1439,9 @@ def align_and_count(
             if item is None:
                 return False
             chunk_map[ci] = item
-            dd = dev.upload(item[1].codes, panel, device, panel_cache,
-                            offsets=item[1].offsets)
+            di = ci % len(devices)
+            dd = dev.upload(item[1].codes, panel, devices[di],
+                            panel_caches[di], offsets=item[1].offsets)
             device_datas[ci] = dd
             scan_out = (
                 dev_scan.dispatch_scan(dd, seed_index.k, seed_index.w)

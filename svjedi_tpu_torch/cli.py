@@ -190,8 +190,14 @@ def main(argv=None) -> int:
         device = (torch.device("cpu") if args.device == "cpu"
                   else select_device())
         result = run_pipeline(cfg, device=device)
+        if args.multihost:
+            from .dist.multihost import shutdown
+
+            shutdown()
         if shard is not None:
             print(f"Shard audit written: {result['shard_json']}")
+        elif result.get("output_vcf") is None:
+            print("Host done; genotyping runs on process 0")
         else:
             print(
                 "Genotyped svs: "

@@ -1,1 +1,1 @@
-"""Distribution layer; so far only the genomic-range decoy shards (copied from svjedi_tpu.dist)."""
+"""Distribution layer: device mesh, sharded count steps, the count merges, and the decoy shards (copied from svjedi_tpu.dist)."""

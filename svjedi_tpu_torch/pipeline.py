@@ -9,6 +9,13 @@ card visible and no device named, the run raises.
 The DP engine follows the device unless named (``align/pipeline.py``:
 ``resolve_engine``); the minimizer scan runs on the device by the JAX rule
 (``use_device_scan``), recorded as ``seed_path`` in the stats.
+
+The distribution modes of the JAX package run here too: ``--data-shards``
+round-robins read chunks over several devices, ``--graph-shards`` counts on
+a (data, graph) device mesh (``dist/count_merge.py``), and ``--multihost``
+joins a process group, aligns this process's block of the reads on
+``cuda:{rank % device_count()}`` and sums the count tables across processes
+(``dist/multihost.py``); process 0 genotypes.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import contextlib
 import json
 import sys
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -41,6 +48,7 @@ from .io.fastq import read_reads
 from .utils.native import load_native
 from .utils.stats import RunStats
 from .align.pipeline import align_and_count, resolve_engine, use_device_scan
+from .dist.mesh import local_devices, make_mesh
 from .kernels import band_dp_dma, band_dp_v3, dev_scan
 
 
@@ -87,31 +95,30 @@ def merge_shards(
     return {"counts": counts, "output_vcf": out_vcf, "summary": summary}
 
 
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{flag} is not ported to svjedi_tpu_torch yet: ROADMAP.md queue A, "
-        f"{item}"
-    )
-
-
 def run_pipeline(
     cfg: PipelineConfig,
     device: Optional[torch.device] = None,
     engine: Optional[str] = None,
+    devices: Optional[Sequence[torch.device]] = None,
 ) -> Dict:
     """Run all stages on ``device`` (default: :func:`select_device`, the
     card) with the DP ``engine`` (default: ``gather`` on the CPU, ``v3`` on a
-    card)."""
-    if cfg.multihost:
-        raise _not_ported("--multihost", "M10")
-    if cfg.dist.data_shards > 1:
-        raise _not_ported("--data-shards > 1", "M9")
-    if cfg.dist.graph_shards > 1:
-        raise _not_ported("--graph-shards > 1", "M9")
+    card). ``devices`` (default: ``dist.mesh.local_devices(device)``) are
+    the devices of ``--data-shards`` and ``--graph-shards``; a list may
+    repeat a device."""
     device = device or select_device()
-    engine = resolve_engine(engine, device)
     stats = RunStats()
     prefix = cfg.prefix
+
+    proc_idx, proc_cnt = 0, 1
+    if cfg.multihost:
+        from .dist.multihost import initialize, rank_device
+
+        proc_idx, proc_cnt = initialize()
+        stats.set("process", f"{proc_idx}/{proc_cnt}")
+        device = rank_device(device)
+    devices = list(devices) if devices is not None else local_devices(device)
+    engine = resolve_engine(engine, device)
     stats.set("device", str(device))
     stats.set("engine", engine)
     if device.type == "cuda":
@@ -220,14 +227,15 @@ def run_pipeline(
                     max_hits_per_minimizer=cfg.align.max_hits_per_minimizer,
                 )
 
-    # Read loading: streamed (O(chunk) resident) or eager. Shard mode
-    # slices the read set by global index, so it loads eagerly.
+    # Read loading: streamed (O(chunk) resident) or eager. Shard and
+    # multihost modes slice the read set by global index, so they load
+    # eagerly.
     stream_mode = cfg.stream_reads
-    if cfg.shard is not None:
+    if cfg.multihost or cfg.shard is not None:
         if stream_mode:
             print(
-                "[pipeline] note: --shard needs the full read set "
-                "resident; streaming disabled for this run",
+                "[pipeline] note: --shard/--multihost need the full read "
+                "set resident; streaming disabled for this run",
                 file=sys.stderr,
             )
         stream_mode = False
@@ -241,7 +249,13 @@ def run_pipeline(
     else:
         with stats.timer("load_reads"):
             reads = read_reads(cfg.reads)
-            if cfg.shard is not None:
+            if cfg.multihost:
+                from .dist.multihost import process_read_block
+
+                lo, hi = process_read_block(reads.n_reads)
+                reads = reads.slice(lo, hi)
+                stats.set("process_block", f"[{lo},{hi})")
+            elif cfg.shard is not None:
                 i, n = cfg.shard
                 lo = reads.n_reads * i // n
                 hi = reads.n_reads * (i + 1) // n
@@ -249,6 +263,22 @@ def run_pipeline(
                 stats.set("shard", f"{i}/{n}")
         stats.set("n_reads", reads.n_reads)
         stats.set("read_bases", int(reads.lengths.sum()))
+
+    # Data parallelism over several devices (DistConfig.data_shards): read
+    # chunks round-robin over the first N devices, the panel uploaded to
+    # each; the per-(SV, allele) count sum merges their results exactly.
+    # Chunks shrink so that every device gets work.
+    align_devices = None
+    chunk_reads = 16384
+    if cfg.dist.data_shards > 1:
+        n_dev = min(cfg.dist.data_shards, len(devices))
+        if n_dev > 1:
+            align_devices = devices[:n_dev]
+            if not stream_mode:  # stream: count unknown until consumed
+                chunk_reads = min(
+                    chunk_reads, max(512, -(-reads.n_reads // n_dev))
+                )
+            stats.set("data_shards", n_dev)
 
     scan_launches0 = dev_scan.launches
     launches0 = band_dp_v3.launches
@@ -265,10 +295,12 @@ def run_pipeline(
     with profiler, stats.timer("align"):
         counts, audit, winners = align_and_count(
             reads, panel, index, cfg.align, cfg.genotype, device=device,
-            decoy=decoy, engine=engine,
+            decoy=decoy, engine=engine, devices=align_devices,
+            chunk_reads=chunk_reads,
         )
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        for d in set(align_devices or [device]):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
     if cfg.profile_dir is not None:
         Path(cfg.profile_dir).mkdir(parents=True, exist_ok=True)
         profiler.export_chrome_trace(str(Path(cfg.profile_dir) / "trace.json"))
@@ -295,6 +327,29 @@ def run_pipeline(
     stats.set("n_winning_alignments", int(len(winners.read)))
     if winners.rescore_flag is not None:
         stats.set("n_audit_rescore_below", int(winners.rescore_flag.sum()))
+    if cfg.dist.graph_shards > 1:
+        # Mesh count merge (dist/count_merge.py): the per-(SV, allele)
+        # matrix re-derived from the merged winners on a (data, graph)
+        # mesh, entries split over data, tag ranges over graph, the shards'
+        # matrices summed; byte-equal to the host reduction.
+        from .config import resolve_min_count_density
+        from .dist.count_merge import mesh_count_support
+
+        g = min(cfg.dist.graph_shards, len(devices))
+        # Data axis: every remaining device unless --data-shards narrows it.
+        d = max(1, len(devices) // g)
+        if cfg.dist.data_shards > 1:
+            d = max(1, min(cfg.dist.data_shards, d))
+        with stats.timer("mesh_count"):
+            mesh = make_mesh(data_shards=d, graph_shards=g,
+                             devices=devices[: d * g])
+            counts = mesh_count_support(
+                panel, winners, mesh, d_over=cfg.genotype.d_over,
+                min_density=resolve_min_count_density(
+                    cfg.genotype, cfg.align
+                ),
+            )
+        stats.set("mesh", f"{d}x{g}")
     if cfg.write_gaf:
         from .align.gaf_out import write_gaf as _write_gaf
 
@@ -311,7 +366,21 @@ def run_pipeline(
         write_informative_json(audit, shard_path)
         stats.dump(f"{prefix}.shard{i}of{n}_stats.json")
         return {"counts": counts, "stats": stats, "shard_json": shard_path}
-    if cfg.keep_artifacts:
+    if cfg.multihost and proc_cnt > 1:
+        # The only cross-process reduction: sum the count tables; process 0
+        # genotypes (dist/multihost.py).
+        from .dist.multihost import allreduce_counts
+
+        with stats.timer("count_allreduce"):
+            counts = allreduce_counts(counts)
+        if cfg.keep_artifacts:
+            write_informative_json(
+                audit, f"{prefix}.host{proc_idx}_informative_aln.json"
+            )
+        if proc_idx != 0:
+            stats.dump(f"{prefix}.host{proc_idx}_stats.json")
+            return {"counts": counts, "stats": stats, "output_vcf": None}
+    elif cfg.keep_artifacts:
         write_informative_json(audit, f"{prefix}_informative_aln.json")
 
     with stats.timer("genotype"):

@@ -61,6 +61,43 @@ def test_host_module_copy_is_verbatim(rel):
                     header), header
 
 
+#: Functions copied verbatim into a module of the port, by module.
+FUNCTIONS = {
+    "dist/engine.py": ("packed_buffers", "assert_no_group_straddle"),
+}
+#: Regions copied verbatim: (module, first line, last function).
+REGIONS = (("dist/count_merge.py", "_BIG = ", "_segment_np"),)
+
+
+@pytest.mark.parametrize(
+    "rel, name", [(rel, n) for rel, names in FUNCTIONS.items() for n in names])
+def test_function_copy_is_verbatim(rel, name):
+    import importlib
+
+    mod = rel[:-3].replace("/", ".")
+    ours = importlib.import_module(f"svjedi_tpu_torch.{mod}")
+    theirs = importlib.import_module(f"svjedi_tpu.{mod}")
+    assert inspect.getsource(getattr(ours, name)) == \
+        inspect.getsource(getattr(theirs, name))
+    assert f"# Copied verbatim from svjedi_tpu/{rel}:{name}.\n" in \
+        inspect.getsource(ours)
+
+
+@pytest.mark.parametrize("rel, first, last", REGIONS)
+def test_region_copy_is_verbatim(rel, first, last):
+    """The JAX module's text from the line starting ``first`` to the end of
+    function ``last`` stands in the port's module, after its header."""
+    theirs = (REPO_ROOT / "svjedi_tpu" / rel).read_text()
+    start = theirs.index(f"\n{first}") + 1
+    end = theirs.index(f"\ndef {last}(")
+    end = theirs.index("\n\n", end + 1)
+    region = theirs[start:end + 1]
+    assert region.count("\ndef ") >= 4  # the whole numpy half
+    ours = (REPO_ROOT / "svjedi_tpu_torch" / rel).read_text()
+    assert (f"# Copied verbatim from svjedi_tpu/{rel}: {first.split()[0]} "
+            f"through {last}.\n" + region) in ours
+
+
 def test_native_source_copy_is_verbatim():
     ours = (REPO_ROOT / "svjedi_tpu_torch" / "native" / "fastio.cpp").read_text()
     theirs = (REPO_ROOT / "native" / "fastio.cpp").read_text()

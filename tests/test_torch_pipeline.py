@@ -155,11 +155,20 @@ def test_shard_merge_and_resume_match_single_run(bundle, single_runs):
     [(DistConfig(data_shards=2), False), (DistConfig(graph_shards=2), False),
      (DistConfig(), True)],
 )
-def test_unported_modes_raise(dist, multihost):
+def test_unported_modes_raise(dist, multihost, tmp_path, monkeypatch):
+    """``--data-shards``, ``--graph-shards`` and ``--multihost`` raised
+    NotImplementedError until the distribution layer was ported; now they
+    run as far as their input, and a missing reference raises."""
+    from svjedi_tpu_torch.dist.multihost import ENV
     from svjedi_tpu_torch.pipeline import run_pipeline
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_pipeline(PipelineConfig(dist=dist, multihost=multihost))
+    for key in ENV:
+        monkeypatch.delenv(key, raising=False)
+    cfg = PipelineConfig(ref=str(tmp_path / "missing.fasta"), dist=dist,
+                         multihost=multihost, prefix=str(tmp_path / "out"))
+    with pytest.raises(FileNotFoundError):
+        run_pipeline(cfg, device=torch.device("cpu"),
+                     devices=[torch.device("cpu")] * 2)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(
