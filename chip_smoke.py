@@ -9,12 +9,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``nvidia-smi`` name and power limit, and the int32 peak (SMs x 64 lanes x
    the max SM clock) that the kernels' bounds use. Builds the port's native
    host library (``svjedi_tpu_torch/native/fastio.cpp``) and the CUDA
-   kernels (``svjedi_tpu_torch/kernels/csrc``: the DP kernels and the
-   minimizer scan), prints ptxas's registers and
+   kernels (``svjedi_tpu_torch/kernels/csrc``: the DP kernels, the audit's
+   stats DP and the minimizer scan), prints ptxas's registers and
    spills for each build (or that the library was cached) and the DPX
-   instructions in the SASS of K1/K1' (8 builds), K3 (4) and K4 (4); fails
-   if a K1/K1' build or a narrow K3 or K4 build has no DPX add-max
-   (VIADDMNMX).
+   instructions in the SASS of K1/K1' (8 builds), K3 (4), K4 (4) and A1
+   (6); fails if a K1/K1' build or a narrow K3, K4 or A1 build has no DPX
+   add-max (VIADDMNMX).
 2. Kernel vs plain: the band_dp_v3 kernel (K1) against its plain PyTorch
    version on the same CUDA tensors, exactly, at every bucket of
    ``AlignConfig.buckets`` with band 128 and at bucket 2048 with band 256
@@ -48,24 +48,39 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    result must equal the fused-fetch kernel's on the same problems.
    Then the 10 Mb / 1,000 SV / 20x configuration is simulated (the scale
    config's seeds) for the phases below.
-2d. The minimizer scan (D1, ``dev_scan``) against its plain version, bit
-   for bit, at k/w 15/10 and 11/5 on edge-case reads (N runs, palindromes,
-   reads of 5, k - 1, k, k + w - 2 and k + w - 1 bases, an empty read, a
-   read ending on a tile edge and one straddling it, a code count that is
-   not a multiple of 8), and through ``dispatch_scan``'s pinned copy; then
+2d. The minimizer scan (D1, ``dev_scan``: the sliding-window design)
+   against its plain version, bit for bit, at k/w 15/10 and 11/5 on edge-case reads (N runs, palindromes,
+   reads of 5, k - 1, k, k + w - 2 and k + w - 1 bases, an empty read,
+   reads ending on tile edges and straddling them, code counts that are
+   not multiples of 8), and through ``dispatch_scan``'s pinned copy; then
    on a full production chunk of the simulated reads (16,384 reads):
    bit-equal to the plain version, its set bits equal to the native host
    emission, ``seed_candidates(bits=...)`` equal to the host scan's
    candidates; times the kernel and the plain version, with the bound.
+2e. The audit's stats DP (A1, ``band_dp_stats``) against its plain version
+   (``band_dp_stats_ref``) on the same CUDA tensors, exactly (score,
+   matches, n_diag, qe, te), at buckets 512, 1024 and 2048 with band 256
+   and at bucket 2048 with band 512: ragged pieces, an all-sentinel read
+   row and an all-sentinel target row, tandem repeats (tied maxima across
+   rows and band offsets), two equal local alignments that K1's end rule
+   and the per-cell rule tell apart; at bucket 2048 also a zero gap open
+   and a positive mismatch (every row runs) and the wide build (mismatch
+   -200). Then ``compute_winner_stats`` on the winners of one production
+   chunk (16,384 reads of the 10 Mb bundle) with A1 and with the plain
+   version on the card: matches, blocklen, rescore_deficit and
+   rescore_flag equal; both times and the host assembly's share. At the
+   production shape (that chunk's bucket-2048 pieces: its first 4,096 and
+   the whole bucket, band 256) times A1 and the plain version, with the
+   bound.
 3. Main path: runs ``python -m svjedi_tpu_torch run`` on the simulated
    bundle as a subprocess (the card, the v3 engine, with ``--gaf``). It
    must exit 0, genotype at accuracy 100.0, launch the forward and the
-   reverse kernel, seed from the device scan with one scan launch per
+   reverse kernel and the audit's stats kernel (A1), seed from the device scan with one scan launch per
    chunk, load the port's own native library, and print none of the
    aligner's fault warnings.
 4. One-pass path: ``run_pipeline(..., engine="dma")`` in this process on
-   phase 3's files, gated like phase 3, with band_dp_dma launches > 0 and
-   band_dp_v3 launches == 0; prints its align stage, reads/s, peak device
+   phase 3's files, gated like phase 3, with band_dp_dma launches > 0,
+   band_dp_v3 launches == 0 and A1 launches > 0; prints its align stage, reads/s, peak device
    memory, the VCF records that differ from phase 3's, and per winner field
    (GAF spans, score, mapq) how many winners the two engines disagree on.
 5. Bench: ``SVJT_BENCH_CONFIG=scale python -m svjedi_tpu_torch.bench`` as
@@ -82,20 +97,21 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``v3`` step. Then ``run_pipeline`` with ``--data-shards 2
    --graph-shards 2`` on four entries of ``cuda:0``, on phase 3's files:
    its VCF byte-equal to phase 3's, accuracy 100.0, ``data_shards`` 2,
-   ``mesh`` "2x2", K1 and K1' launched, ``seed_path`` "device", no fault
-   warning.
+   ``mesh`` "2x2", K1, K1' and A1 launched, ``seed_path`` "device", no
+   fault warning.
 7. Multihost: two processes of ``python -m svjedi_tpu_torch run
    --multihost`` in a gloo group on 127.0.0.1 (``MASTER_ADDR``,
    ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``), both on ``cuda:0``, each
    aligning half of the reads, with a time limit that kills both; process
-   0's VCF must equal a single-process run's byte for byte. On the 10 Mb
+   0's VCF must equal a single-process run's byte for byte, and each
+   process must launch A1. On the 10 Mb
    bundle (the single run is phase 3's) unless phase 3's wall time says
    the script would pass 1,000 s; then on a 1 Mb / 100 SV / 20x bundle
    with its own single run.
 
 Every phase prints its seconds. The kernels' launches in the JSON record
-are those of the main path: phases 3 and 6 for K1 and K1', phase 4 for
-K3, phase 2c for K4, phase 3 for D1.
+are those of one path's run each: phase 3 (`run`) for K1, K1', D1 and A1,
+phase 4 for K3, phase 2c for K4; a log line gives the other paths'.
 
 Everything runs through ``svjedi_tpu_torch``; nothing of JAX or of the JAX
 package is imported. The second-to-last line is the kernels' JSON record;
@@ -146,17 +162,20 @@ INT32_LANES_PER_SM = 64
 #: (H before the gap), viaddmax (lane-local F scan), viaddmax x2 (F
 #: closure), imad + max (the packed best-cell key). The one-pass kernels (K3, K4)
 #: add five selects that carry the start: vertical source, diagonal vs
-#: vertical, reset at 0, horizontal source, best start.
-OPS_PER_CELL = {"k1": 9, "onepass": 14}
+#: vertical, reset at 0, horizontal source, best start. The audit's stats
+#: DP (A1) adds to those one add: the diagonal step's increment.
+OPS_PER_CELL = {"k1": 9, "onepass": 14, "stats": 15}
 DPX_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX")
 #: (kernel name in the SASS, number of builds, regex of the builds that must
 #: use VIADDMNMX). K1 and K1': forward and reverse x narrow and wide x band
 #: 128 and 256; K3 and K4: narrow and wide x band 128 and 256, the narrow
-#: builds (template flag kWide = false, mangled "Lb0E") checked.
+#: builds (template flag kWide = false, mangled "Lb0E") checked; A1: narrow
+#: and wide x band 128, 256 and 512.
 DPX_CHECKS = (
     ("band_dp_v3_kernel", 8, r"."),
     ("band_dp_dma_kernel", 4, r"band_dp_dma_kernelILi\d+ELb0E"),
     ("band_dp_onepass_kernel", 4, r"band_dp_onepass_kernelILi\d+ELb0E"),
+    ("band_dp_stats_kernel", 6, r"band_dp_stats_kernelILi\d+ELi\d+ELb0E"),
 )
 
 
@@ -202,13 +221,15 @@ def phase_device():
     if build.build_seconds == 0.0:
         log("[build] ptxas report unavailable: the kernels' library was "
             "cached, not rebuilt")
-    for src in ("band_dp_v3.cu", "band_dp_onepass.cu", "dev_scan.cu"):
+    for src in ("band_dp_v3.cu", "band_dp_onepass.cu", "band_dp_stats.cu",
+                "dev_scan.cu"):
         for line in build.ptxas_report.get(src, "").splitlines():
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 log(f"[build] ptxas {src}: {line.strip()}")
     # Every K1 / K1' build must use DPX add-max, and so must the narrow
-    # builds (kWide false) of K3 and K4; their wide builds are printed only.
+    # builds (kWide false) of K3, K4 and A1; their wide builds are printed
+    # only.
     for kernel, n_builds, must in DPX_CHECKS:
         found = dpx_in_sass(build.library_path(), kernel)
         for fn, ops in found.items():
@@ -556,6 +577,21 @@ def check_device_scan(counters, n_reads: int, what: str) -> int:
     return launches
 
 
+def check_stats_launches(counters, what: str) -> int:
+    """The run's audit must have gone through the stats kernel (A1);
+    returns its launches."""
+    launches = int(counters.get("band_dp_stats_launches", 0))
+    if launches <= 0:
+        fail(f"{what} launched the band_dp_stats kernel no time")
+    return launches
+
+
+def audit_split(counters, launches: int) -> str:
+    return (f"audit: band_dp_stats launches {launches}, host piece assembly "
+            f"{counters.get('audit_assembly_s')} s, stats DP to host "
+            f"{counters.get('audit_dp_s')} s")
+
+
 def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
     from svjedi_tpu_torch.evals.contingency import contingency_report
     from svjedi_tpu_torch.kernels import band_dp_v3
@@ -592,6 +628,7 @@ def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
         fail("the main path launched the band_dp_v3 reverse kernel no time")
     check_native(counters, "the main path")
     scan_launches = check_device_scan(counters, n_reads, "the main path")
+    stats_launches = check_stats_launches(counters, "the main path")
     report = contingency_report(paths["vcf"], f"{prefix}_genotype.vcf")
     acc = re.search(r"accuracy: ([\d.]+)", report)
     log("[main] " + " | ".join(report.strip().splitlines()))
@@ -607,8 +644,9 @@ def phase_main_path(out: Path, paths, n_reads, timeout: int = 900):
         f"{rev_launches}); seed path "
         f"{counters.get('seed_path')} (dev_scan launches {scan_launches}); "
         f"audit re-score warnings {n_audit_warn}; "
-        f"n_audit_rescore_below {counters.get('n_audit_rescore_below')}")
-    return launches, rev_launches, scan_launches, prefix
+        f"n_audit_rescore_below {counters.get('n_audit_rescore_below')}; "
+        + audit_split(counters, stats_launches))
+    return launches, rev_launches, scan_launches, stats_launches, prefix
 
 
 # ---- phase 2b -----------------------------------------------------------------
@@ -799,24 +837,35 @@ def phase_onepass_kernels(peak_ops: float):
 
 # ---- phase 2d -----------------------------------------------------------------
 
-#: int32 operations per k-mer position of the device scan (D1), the least
-#: the work needs: rolling the two 2-bit k-mers over one new base (code & 3,
-#: 3 - c, shift | or & mask for fwd, shift, shift, or for rc, the N test and
-#: its last-N update: 10), then min, fwd != rc, fmix32 (3 shifts, 3 xors,
-#: 2 multiplies), the read-id tests and the two selects (15).
+#: int32 operations per k-mer position of the device scan (D1) in the
+#: run-length formulation (the JAX program's): rolling the two 2-bit k-mers
+#: over one new base (code & 3, 3 - c, shift | or & mask for fwd, shift,
+#: shift, or for rc, the N test and its last-N update: 10), then min,
+#: fwd != rc, fmix32 (3 shifts, 3 xors, 2 multiplies), the read-id tests
+#: and the two selects (15).
 SCAN_OPS_PER_POSITION = 25
 #: Per step of a run (read-id compare, hash compare, count); a valid
 #: position takes min(a + 1, w - 1) + min(b + 1, w - 1) steps.
 SCAN_OPS_PER_STEP = 3
+#: Per position in the sliding-window formulation the kernel runs
+#: (csrc/dev_scan.cu), which takes no run steps: the two k-mers from funnel
+#: shifts (2 funnel shifts, a shift, a mask: 4), the N and read-boundary
+#: tests on bit words (5 each), the read-range tests (3), fwd != rc, min,
+#: fmix32 (8), the select of INVALID (1: 28), then the window minimum: a
+#: prefix and a suffix compare-select (4), the window's compare-select (2)
+#: and its three validity compares (3). The bound takes the fewer of the
+#: two formulations' counts on the run's data.
+SCAN_OPS_WINDOW_PER_POSITION = 37
 SCAN_KW = ((15, 10), (11, 5))
 
 
 def scan_read_sets(k: int, w: int):
     """Edge-case reads for the scan: lengths 5, k - 1, k, k + 1, k + w - 2,
     k + w - 1 and longer, an empty read, N runs, an all-N read, all-
-    palindromic and periodic reads; and reads against the kernel's 1024-
-    position tiles (one ending on a tile edge, one straddling the edge at
-    2048, an empty one, 3,097 codes in all: not a multiple of 8)."""
+    palindromic and periodic reads; and reads against tile edges (the
+    first design's 1024-position tiles: one read ending on 1024, one
+    straddling 2048, an empty one, 3,097 codes in all, not a multiple of 8;
+    and the kernel's 4096-position tiles, below)."""
     def concat(reads):
         return (np.concatenate(reads),
                 np.concatenate([[0], np.cumsum([len(r) for r in reads])]))
@@ -835,10 +884,44 @@ def scan_read_sets(k: int, w: int):
     reads.insert(3, np.zeros(0, np.int8))
     tiles = [rng.integers(0, 4, n).astype(np.int8)
              for n in (1024, 1000, 0, 1, 1030, 37, 5)]
-    return {"edge reads": concat(reads), "tile edges": concat(tiles)}
+    # Against the kernel's 4096-position tiles: reads ending on 2048 and on
+    # the tile edge at 4096, an empty one between, 4,133 codes in all.
+    tiles2 = [rng.integers(0, 4, n).astype(np.int8)
+              for n in (2048, 1000, 0, 1048, 30, 7)]
+    return {"edge reads": concat(reads), "tile edges": concat(tiles),
+            "4096 tile edges": concat(tiles2)}
 
 
-def phase_dev_scan(peak_ops: float, paths):
+def build_genome(paths):
+    """The 10 Mb bundle's panel, panel index and decoy, as align_and_count
+    builds them (AlignConfig defaults)."""
+    from svjedi_tpu_torch.align.decoy import build_decoy
+    from svjedi_tpu_torch.align.index import build_panel_index
+    from svjedi_tpu_torch.config import AlignConfig
+    from svjedi_tpu_torch.graph.build import build_graph
+    from svjedi_tpu_torch.graph.cluster import build_panel
+    from svjedi_tpu_torch.graph.svparse import parse_vcf_svs
+    from svjedi_tpu_torch.io.fasta import read_fasta
+
+    cfg = AlignConfig()
+    t0 = time.perf_counter()
+    chroms = read_fasta(paths["ref"])
+    parsed = parse_vcf_svs(paths["vcf"], {c: len(s) for c, s in chroms.items()})
+    panel = build_panel(build_graph(chroms, parsed), flank=cfg.flank,
+                        cluster_gap=cfg.cluster_gap,
+                        max_paths_per_cluster=cfg.max_paths_per_cluster,
+                        max_hops_per_path=cfg.max_hops_per_path)
+    hits = cfg.max_hits_per_minimizer
+    index = build_panel_index(panel, k=cfg.kmer, w=cfg.window,
+                              max_hits_per_minimizer=hits)
+    decoy = build_decoy(panel, k=cfg.kmer, w=cfg.window,
+                        max_hits_per_minimizer=hits)
+    log(f"[genome] panel ({len(panel.paths)} paths), index and decoy of the "
+        f"10 Mb bundle ({time.perf_counter() - t0:.1f} s)")
+    return {"panel": panel, "index": index, "decoy": decoy}
+
+
+def phase_dev_scan(peak_ops: float, paths, genome):
     """D1: the scan kernel against its plain version on the card, bit for
     bit, on edge cases and on a full production chunk of the 10 Mb reads;
     there also against the native host emission and, through
@@ -848,15 +931,10 @@ def phase_dev_scan(peak_ops: float, paths):
     import torch
 
     from svjedi_tpu_torch.align import dev_scan as scan
-    from svjedi_tpu_torch.align.decoy import build_decoy
     from svjedi_tpu_torch.align.device import upload
-    from svjedi_tpu_torch.align.index import build_panel_index, merge_indexes
+    from svjedi_tpu_torch.align.index import merge_indexes
     from svjedi_tpu_torch.align.seed import ChainParams, seed_candidates
     from svjedi_tpu_torch.config import AlignConfig
-    from svjedi_tpu_torch.graph.build import build_graph
-    from svjedi_tpu_torch.graph.cluster import build_panel
-    from svjedi_tpu_torch.graph.svparse import parse_vcf_svs
-    from svjedi_tpu_torch.io.fasta import read_fasta
     from svjedi_tpu_torch.io.fastq import read_reads
     from svjedi_tpu_torch.kernels import dev_scan as kscan
     from svjedi_tpu_torch.utils.native import load_native
@@ -924,16 +1002,8 @@ def phase_dev_scan(peak_ops: float, paths):
     # Candidates from the bitmask == the host scan's, on the merged panel +
     # decoy index with the panel-path limit (align_and_count's seeding).
     t0 = time.perf_counter()
-    chroms = read_fasta(paths["ref"])
-    parsed = parse_vcf_svs(paths["vcf"], {c: len(s) for c, s in chroms.items()})
-    panel = build_panel(build_graph(chroms, parsed), flank=cfg.flank,
-                        cluster_gap=cfg.cluster_gap,
-                        max_paths_per_cluster=cfg.max_paths_per_cluster,
-                        max_hops_per_path=cfg.max_hops_per_path)
-    hits = cfg.max_hits_per_minimizer
-    index = build_panel_index(panel, k=k, w=w, max_hits_per_minimizer=hits)
-    decoy = build_decoy(panel, k=k, w=w, max_hits_per_minimizer=hits)
-    combo = merge_indexes(index, decoy.index)
+    index = genome["index"]
+    combo = merge_indexes(index, genome["decoy"].index)
     cp = ChainParams(min_anchors=cfg.min_anchors, max_chains=cfg.max_chains,
                      max_gap=cfg.chain_max_gap, drift_abs=cfg.chain_drift_abs,
                      drift_permille=cfg.chain_drift_permille,
@@ -955,8 +1025,8 @@ def phase_dev_scan(peak_ops: float, paths):
     log(f"[scan] production chunk: seed_candidates(bits=) == host scan "
         f"({len(via_host)} candidates; lookup + chain from the bitmask "
         f"{t2 - t1:.2f} s, host scan + lookup + chain {t3 - t2:.2f} s; "
-        f"index build {t1 - t0:.1f} s)")
-    del panel, index, decoy, combo, via_dev, via_host
+        f"index merge {t1 - t0:.1f} s)")
+    del combo, via_dev, via_host
 
     ms = cuda_time_ms(
         lambda: kscan.dev_scan(dd.reads2, dd.offsets32, k, w, n_cap), reps=20)
@@ -971,7 +1041,9 @@ def phase_dev_scan(peak_ops: float, paths):
     steps = int(((a + 1).clamp(max=w - 1) + (b + 1).clamp(max=w - 1))[valid]
                 .sum())
     positions = max(0, dd.n_codes - k + 1)
-    ops = positions * SCAN_OPS_PER_POSITION + steps * SCAN_OPS_PER_STEP
+    runs_ops = positions * SCAN_OPS_PER_POSITION + steps * SCAN_OPS_PER_STEP
+    window_ops = positions * SCAN_OPS_WINDOW_PER_POSITION
+    ops = min(runs_ops, window_ops)
     n_bytes = dd.n_codes + 4 * dd.offsets32.numel() + n_cap // 8
     ops_ms = ops / peak_ops * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -980,12 +1052,191 @@ def phase_dev_scan(peak_ops: float, paths):
     log(f"[scan] dev_scan production chunk (n_cap {n_cap}, {positions} "
         f"positions, {steps} run steps): kernel {ms:.3f} ms "
         f"({positions / ms / 1e6:.2f} Gpos/s), plain {plain_ms:.3f} ms; bound "
-        f"{bms:.3f} ms by {by} ({ops / 1e9:.3f} Gop; bytes {bytes_ms:.3f} "
-        f"ms), {100 * bms / ms:.1f}% of bound; {n_cases} bit-equal checks")
+        f"{bms:.3f} ms by {by} ({ops / 1e9:.3f} Gop, the fewer of run-length "
+        f"{runs_ops / 1e9:.3f} and sliding-window {window_ops / 1e9:.3f}; "
+        f"bytes {bytes_ms:.3f} ms), {100 * bms / ms:.1f}% of bound; "
+        f"{n_cases} bit-equal checks")
     del h, a, b, valid, dd
     torch.cuda.empty_cache()
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by}
+
+
+# ---- phase 2e -----------------------------------------------------------------
+
+#: The audit's buckets (AlignConfig.buckets up to block_rows) and its band,
+#: 2 x cfg.band; 512 is the audit's band when cfg.band is 256.
+STATS_CASES = ((512, 256), (1024, 256), (2048, 256), (2048, 512))
+#: The winner fields compute_winner_stats fills.
+AUDIT_FIELDS = ("matches", "blocklen", "rescore_deficit", "rescore_flag")
+
+
+def make_pieces(seed: int, P: int, M: int, band: int):
+    """Audit-like pieces: a read window of m <= M bases (ragged: sentinel
+    rows after it; 1% interior N) and a target window holding a 10%-noisy
+    copy with indels near the band's centre. Then the edge and tie cases:
+    an all-sentinel read row, an all-sentinel target row, poly-A against
+    poly-A, di- and trinucleotide repeats, and two equal local alignments,
+    the first ending at an earlier row on a higher band offset (K1's end
+    rule reports it, the per-cell rule the second). Returns numpy q, t."""
+    rng = np.random.default_rng(seed)
+    q = np.full((P, M), 4, dtype=np.int8)
+    t = np.full((P, M + band), 4, dtype=np.int8)
+    m = rng.integers(M // 4, M + 1, P)
+    reads = rng.integers(0, 4, (P, M)).astype(np.int8)
+    copy = reads.copy()
+    flips = rng.random(copy.shape) < 0.1
+    copy[flips] = rng.integers(0, 4, int(flips.sum()))
+    for p in range(P):
+        c = np.insert(np.delete(copy[p, :m[p]], rng.integers(0, m[p], 3)),
+                      rng.integers(0, m[p] - 3, 3),
+                      rng.integers(0, 4, 3).astype(np.int8))
+        off = band // 2 + int(rng.integers(-20, 21))
+        n = min(len(c), M + band - off)
+        t[p, off:off + n] = c[:n]
+    q[:] = np.where(np.arange(M)[None, :] < m[:, None], reads, 4)
+    q[rng.random(q.shape) < 0.01] = 4
+    q[0] = 4
+    t[1] = 4
+    q[2], t[2] = 0, 0
+    q[3], t[3] = np.resize([0, 1], M), np.resize([0, 1], M + band)
+    q[4], t[4] = np.resize([2, 0, 3], M), np.resize([1, 2, 0, 3], M + band)
+    pair = np.random.default_rng(5)
+    x, y = (pair.integers(0, 4, 30).astype(np.int8) for _ in range(2))
+    q[5], t[5] = 4, 4
+    q[5, :30], t[5, band - 28:band + 2] = x, x
+    q[5, 40:70], t[5, 60:90] = y, y
+    return q, t
+
+
+def phase_stats_kernel(peak_ops: float, paths, genome):
+    """A1: the stats kernel against its plain version on the card, exactly,
+    on edge cases and on one production chunk's audit; times it."""
+    import torch
+
+    from svjedi_tpu_torch.align import pipeline as apipe
+    from svjedi_tpu_torch.align.extend import DPParams
+    from svjedi_tpu_torch.config import AlignConfig, GenotypeConfig
+    from svjedi_tpu_torch.io.fastq import read_reads
+    from svjedi_tpu_torch.kernels import band_dp_stats as a1
+
+    dev = torch.device("cuda:0")
+    max_err = 0
+    n_cases = 0
+
+    def compare(tag, q, t, band, p=DPParams()):
+        nonlocal max_err, n_cases
+        got = a1.band_dp_stats(q, t, band, p)
+        ref = a1.band_dp_stats_ref(q, t, band, p)
+        torch.cuda.synchronize()
+        for key in a1.STATS_COLS:
+            e = int((got[key].to(torch.int64) - ref[key].to(torch.int64))
+                    .abs().max())
+            max_err = max(max_err, e)
+            if e != 0:
+                fail(f"the stats kernel disagrees with its plain version: "
+                     f"{key}, {tag} (max abs err {e})")
+        n_cases += 1
+        return ref
+
+    for bucket, band in STATS_CASES:
+        t0 = time.perf_counter()
+        q, t = make_pieces(bucket + band, 256, bucket, band)
+        q, t = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
+        tag = f"bucket={bucket} band={band}"
+        ref = compare(tag, q, t, band)
+        if (int(ref["score"][5]), int(ref["qe"][5]),
+                int(ref["te"][5])) != (60, 29, band + 1):
+            fail(f"two equal local alignments: the end is not K1's row rule "
+                 f"({tag}: qe {int(ref['qe'][5])}, te {int(ref['te'][5])})")
+        extra = ""
+        if bucket == 2048:
+            # Every row runs (a zero gap open; a positive mismatch) and the
+            # wide build (a mismatch outside int8).
+            for p in (DPParams(gap_open=2, gap_extend=-2),
+                      DPParams(mismatch=1), DPParams(mismatch=-200)):
+                compare(f"{p} {tag}", q, t, band, p)
+            extra = ("; also with a zero gap open, a positive mismatch and "
+                     "in the wide build")
+        log(f"[stats] bucket {bucket:5d} band {band} P 256: band_dp_stats "
+            f"exact{extra} ({time.perf_counter() - t0:.1f} s)")
+
+    # One production chunk's audit (the run's second chunk, 16,384 reads):
+    # its winners, then compute_winner_stats with A1 and with the plain
+    # version, each on the card.
+    cfg = AlignConfig()
+    t0 = time.perf_counter()
+    reads = read_reads(str(paths["reads"]))
+    chunk = reads.slice(4096, min(reads.n_reads, 4096 + 16384))
+    del reads
+    _, _, winners = apipe.align_and_count(
+        chunk, genome["panel"], genome["index"], cfg, GenotypeConfig(),
+        device=dev, collect_audit=False, chunk_reads=16384,
+        decoy=genome["decoy"])
+    log(f"[stats] production chunk: {chunk.n_reads} reads, "
+        f"{len(winners.read)} winners ({time.perf_counter() - t0:.1f} s)")
+    pieces = {}
+
+    def kernel_dp(q, t, band, params):
+        pieces[q.shape[1]] = (q, t)
+        return a1.band_dp_stats(q, t, band, params)
+
+    runs = {}
+    for name, dp in (("kernel", kernel_dp), ("plain", a1.band_dp_stats_ref)):
+        timings = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        apipe.compute_winner_stats(chunk, genome["panel"], winners, cfg, dev,
+                                   dp=dp, timings=timings)
+        torch.cuda.synchronize()
+        runs[name] = (time.perf_counter() - t0, timings,
+                      {f: getattr(winners, f).copy() for f in AUDIT_FIELDS})
+    for f in AUDIT_FIELDS:
+        if not np.array_equal(runs["kernel"][2][f], runs["plain"][2][f]):
+            fail(f"compute_winner_stats with the stats kernel differs from "
+                 f"the plain version in {f}")
+    sizes = ", ".join(f"bucket {m}: {q.shape[0]}"
+                      for m, (q, _) in sorted(pieces.items()))
+    for name, (secs, tm, _) in runs.items():
+        log(f"[stats] compute_winner_stats with the {name} DP: {secs:.3f} s, "
+            f"of which host piece assembly {tm['audit_assembly_s']:.3f} s "
+            f"({100 * tm['audit_assembly_s'] / secs:.1f}%), DP calls to "
+            f"their host results {tm['audit_dp_s']:.3f} s")
+    log(f"[stats] production chunk: matches, blocklen, rescore_deficit, "
+        f"rescore_flag equal with the kernel and the plain version; pieces "
+        f"per bucket {sizes}; flagged {int(runs['kernel'][2]['rescore_flag'].sum())}")
+
+    # The production shape: the chunk's bucket-2048 pieces, band 256, its
+    # first 4,096 (the JAX package's slice) and the whole bucket.
+    band = 2 * cfg.band
+    q, t = pieces[max(pieces)]
+    times = {}
+    for label, qq, tt in (("4096", q[:4096], t[:4096]), ("bucket", q, t)):
+        compare(f"production {label}", qq, tt, band)
+        ms = cuda_time_ms(lambda: a1.band_dp_stats(qq, tt, band), reps=10)
+        plain_ms = cuda_time_ms(lambda: a1.band_dp_stats_ref(qq, tt, band),
+                                reps=1)
+        # Bound: the rows each piece needs (to its last read code other
+        # than the sentinel), each input byte once, 32 bytes out each.
+        coded = qq != 4
+        last = coded.flip(1).to(torch.uint8).argmax(1)
+        rows = torch.where(coded.any(1), qq.shape[1] - last, 0)
+        need = float(rows.sum())
+        cells = need * band
+        n_bytes = need + (need + band * qq.shape[0]) + 32 * qq.shape[0]
+        bms, by = bound_ms(cells, OPS_PER_CELL["stats"], n_bytes, peak_ops)
+        times[label] = (ms, plain_ms, bms, by)
+        log(f"[stats] band_dp_stats P {qq.shape[0]} bucket {qq.shape[1]} band "
+            f"{band}: kernel {ms:.3f} ms ({cells / ms / 1e6:.2f} Gcell/s), "
+            f"plain {plain_ms:.3f} ms; bound {bms:.3f} ms by {by} "
+            f"({cells / 1e9:.3f} Gcell x {OPS_PER_CELL['stats']} ops), "
+            f"{100 * bms / ms:.1f}% of bound")
+    log(f"[stats] {n_cases} exact comparisons, max abs err {max_err}")
+    ms, plain_ms, bms, by = times["bucket"]
+    del pieces, q, t, winners, chunk
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by}
 
 
 # ---- phase 4 ------------------------------------------------------------------
@@ -1036,7 +1287,9 @@ def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path):
 
     from svjedi_tpu_torch.config import PipelineConfig
     from svjedi_tpu_torch.evals.contingency import contingency_report
-    from svjedi_tpu_torch.kernels import band_dp_dma, band_dp_v3, dev_scan
+    from svjedi_tpu_torch.kernels import (
+        band_dp_dma, band_dp_stats, band_dp_v3, dev_scan,
+    )
     from svjedi_tpu_torch.pipeline import run_pipeline
 
     prefix = out / "dma"
@@ -1047,11 +1300,13 @@ def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path):
     band_dp_dma.launches = 0
     band_dp_v3.launches = 0
     dev_scan.launches = 0
+    band_dp_stats.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         run_pipeline(cfg, device=torch.device("cuda:0"), engine="dma")
     wall = time.perf_counter() - t0
     launches, v3_launches = band_dp_dma.launches, band_dp_v3.launches
+    stats_launches = band_dp_stats.launches
     stderr = err.getvalue()
     for line in stderr.splitlines()[-8:]:
         log(f"[onepass-path] stderr: {line}")
@@ -1069,6 +1324,11 @@ def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path):
         fail(f"the one-pass run recorded engine {counters.get('engine')!r}")
     check_native(counters, "the one-pass path")
     check_device_scan(counters, n_reads, "the one-pass path")
+    if stats_launches <= 0 or check_stats_launches(
+            counters, "the one-pass path") != stats_launches:
+        fail(f"the one-pass path launched the band_dp_stats kernel "
+             f"{stats_launches} times (stats: "
+             f"{counters.get('band_dp_stats_launches')})")
     vcf = Path(f"{prefix}_genotype.vcf")
     report = contingency_report(paths["vcf"], str(vcf))
     acc = re.search(r"accuracy: ([\d.]+)", report)
@@ -1093,8 +1353,9 @@ def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path):
         f"{counters.get('device_max_memory_allocated')} bytes; band_dp_dma "
         f"launches {launches}; band_dp_v3 launches {v3_launches}; VCF records "
         f"differing from the v3 run: {n_diff} of {len(theirs)}; audit "
-        f"re-score warnings {stderr.count(AUDIT_WARNING)}")
-    return launches
+        f"re-score warnings {stderr.count(AUDIT_WARNING)}; "
+        + audit_split(counters, stats_launches))
+    return launches, stats_launches
 
 
 def phase_pregathered_path(data, vecs, dma_out, bucket: int):
@@ -1258,7 +1519,7 @@ def phase_dist_run(out: Path, paths, v3_prefix: Path):
 
     from svjedi_tpu_torch.config import DistConfig, PipelineConfig
     from svjedi_tpu_torch.evals.contingency import contingency_report
-    from svjedi_tpu_torch.kernels import band_dp_v3
+    from svjedi_tpu_torch.kernels import band_dp_stats, band_dp_v3
     from svjedi_tpu_torch.pipeline import run_pipeline
 
     dev = torch.device("cuda:0")
@@ -1268,12 +1529,14 @@ def phase_dist_run(out: Path, paths, v3_prefix: Path):
                          dist=DistConfig(data_shards=2, graph_shards=2))
     err = io.StringIO()
     band_dp_v3.launches = band_dp_v3.rev_launches = 0
+    band_dp_stats.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
         run_pipeline(cfg, device=dev, devices=[dev] * 4)
     wall = time.perf_counter() - t0
     rev_launches = band_dp_v3.rev_launches
     fwd_launches = band_dp_v3.launches - rev_launches
+    stats_launches = band_dp_stats.launches
     stderr = err.getvalue()
     for line in stderr.splitlines()[-8:]:
         log(f"[dist-run] stderr: {line}")
@@ -1287,6 +1550,10 @@ def phase_dist_run(out: Path, paths, v3_prefix: Path):
     with open(f"{prefix}_stats.json") as fh:
         stats = json.load(fh)
     counters, timings = stats["counters"], stats["timings_s"]
+    if stats_launches <= 0 or check_stats_launches(
+            counters, "the --data-shards/--graph-shards run") != stats_launches:
+        fail(f"the --data-shards/--graph-shards run launched the "
+             f"band_dp_stats kernel {stats_launches} times")
     for key, want in (("data_shards", 2), ("mesh", "2x2"),
                       ("seed_path", "device"), ("engine", "v3")):
         if counters.get(key) != want:
@@ -1305,8 +1572,9 @@ def phase_dist_run(out: Path, paths, v3_prefix: Path):
         f"{float(timings['mesh_count']):.3f} s; VCF byte-equal to phase 3's; "
         f"K1 launches {fwd_launches}, K1' {rev_launches}; dev_scan launches "
         f"{counters.get('dev_scan_launches')}; max_memory_allocated "
-        f"{counters.get('device_max_memory_allocated')} bytes")
-    return fwd_launches, rev_launches
+        f"{counters.get('device_max_memory_allocated')} bytes; "
+        + audit_split(counters, stats_launches))
+    return fwd_launches, rev_launches, stats_launches
 
 
 # ---- phase 7 ------------------------------------------------------------------
@@ -1371,10 +1639,13 @@ def phase_multihost(out: Path, paths, single_vcf: Path, mb: int,
             run = json.load(fh)
         stats.append(run["counters"])
         timings.append(run["timings_s"])
+    stats_launches = 0
     for rank, counters in enumerate(stats):
         if counters.get("process") != f"{rank}/2":
             fail(f"--multihost process {rank} recorded process "
                  f"{counters.get('process')!r}")
+        stats_launches += check_stats_launches(
+            counters, f"--multihost process {rank}")
     if Path(f"{prefix}_genotype.vcf").read_bytes() != single_vcf.read_bytes():
         fail("the two-process --multihost VCF differs from the single run's")
     log(f"[multihost] two processes on {stats[0].get('device')} and "
@@ -1387,8 +1658,10 @@ def phase_multihost(out: Path, paths, single_vcf: Path, mb: int,
                        for t in timings)
         + "; band_dp_v3 launches (reverse kernel) "
         + " and ".join(f"{c.get('band_dp_v3_launches')} "
-                       f"({c.get('band_dp_v3_rev_launches')})" for c in stats))
-    return wall
+                       f"({c.get('band_dp_v3_rev_launches')})" for c in stats)
+        + "; band_dp_stats launches "
+        + " and ".join(str(c.get("band_dp_stats_launches")) for c in stats))
+    return stats_launches
 
 
 def phase_multihost_any(out: Path, paths, v3_prefix: Path, t_start: float,
@@ -1449,20 +1722,31 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="_chip_smoke_", dir=str(ROOT)) as tmp:
         paths, n_reads = timed("simulate", simulate_bundle, Path(tmp), 10,
                                1000, 20.0)
-        scan = timed("2d", phase_dev_scan, peak_ops, paths)
+        genome = timed("genome", build_genome, paths)
+        scan = timed("2d", phase_dev_scan, peak_ops, paths, genome)
+        stats_kern = timed("2e", phase_stats_kernel, peak_ops, paths, genome)
+        del genome
+        torch.cuda.empty_cache()
         t3 = time.perf_counter()
-        launches, rev_launches, scan_launches, v3_prefix = timed(
+        launches, rev_launches, scan_launches, stats3, v3_prefix = timed(
             "3", phase_main_path, Path(tmp), paths, n_reads)
         phase3_wall = time.perf_counter() - t3
-        dma_launches = timed("4", phase_onepass_path, Path(tmp), paths,
-                             n_reads, v3_prefix)
+        dma_launches, stats4 = timed("4", phase_onepass_path, Path(tmp),
+                                     paths, n_reads, v3_prefix)
         timed("5", phase_bench)
         step_fwd, step_rev = timed("6", phase_dist_step, paths)
-        run_fwd, run_rev = timed("6 run", phase_dist_run, Path(tmp), paths,
-                                 v3_prefix)
-        timed("7", phase_multihost_any, Path(tmp), paths, v3_prefix, t_start,
-              phase3_wall)
+        run_fwd, run_rev, stats6 = timed("6 run", phase_dist_run, Path(tmp),
+                                         paths, v3_prefix)
+        stats7 = timed("7", phase_multihost_any, Path(tmp), paths, v3_prefix,
+                       t_start, phase3_wall)
 
+    # Each kernel's launches in the JSON line are those of its own path's
+    # run (K1, K1', D1 and A1: phase 3, `run`; K3: phase 4; K4: phase 2c);
+    # the other paths' counts, each gated > 0 in its phase, are logged here.
+    log(f"[kernels] launches of the other paths: K1 sharded step {step_fwd}, "
+        f"--data-shards/--graph-shards run {run_fwd}; K1' {step_rev}, "
+        f"{run_rev}; A1 dma path {stats4}, --data-shards/--graph-shards run "
+        f"{stats6}, --multihost {stats7}")
     source = "svjedi_tpu_torch/kernels/csrc/band_dp_onepass.cu"
     v3_source = "svjedi_tpu_torch/kernels/csrc/band_dp_v3.cu"
     print(json.dumps({"kernels": [{
@@ -1470,7 +1754,7 @@ def main() -> int:
         "route": "cuda",
         "source": v3_source,
         "replaces": "svjedi_tpu/kernels/band_dp_v3.py:53",
-        "launches": launches - rev_launches + step_fwd + run_fwd,
+        "launches": launches - rev_launches,
         "library_ms": None,
         **kern["fwd"],
     }, {
@@ -1478,7 +1762,7 @@ def main() -> int:
         "route": "cuda",
         "source": v3_source,
         "replaces": "svjedi_tpu/kernels/band_dp_v3.py:368",
-        "launches": rev_launches + step_rev + run_rev,
+        "launches": rev_launches,
         "library_ms": None,
         **kern["rev"],
     }, {
@@ -1513,6 +1797,14 @@ def main() -> int:
         "launches": scan_launches,
         "library_ms": None,
         **scan,
+    }, {
+        "name": "band_dp_stats",
+        "route": "cuda",
+        "source": "svjedi_tpu_torch/kernels/csrc/band_dp_stats.cu",
+        "replaces": "svjedi_tpu/align/extend.py:188",
+        "launches": stats3,
+        "library_ms": None,
+        **stats_kern,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

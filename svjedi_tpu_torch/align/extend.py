@@ -3,10 +3,12 @@
 PyTorch counterpart of ``svjedi_tpu/align/extend.py``: the scoring
 constants, :func:`band_dp_batch` (the one-pass DP of the ``gather`` engine,
 which reports starts and ends) and :func:`band_dp_stats_batch` (the audit
-re-score of winning spans, which reports match statistics). Both are plain
-PyTorch on whichever device their inputs lie: one Python iteration per read
-row, each row one set of tensor ops over ``(P, band)``. The JAX versions are
-XLA ``lax.scan`` loops, not Pallas kernels.
+re-score of winning spans, which reports match statistics). The JAX
+versions are XLA ``lax.scan`` loops, not Pallas kernels. ``band_dp_batch``
+is plain PyTorch on whichever device its inputs lie: one Python iteration
+per read row, each row one set of tensor ops over ``(P, band)``.
+``band_dp_stats_batch`` goes through ``kernels/band_dp_stats.py``: the CUDA
+kernel A1 on a card, the same row loop on the CPU.
 
 The two share one row loop (:func:`_band_dp_rows`); they differ only in what
 rides along each cell's optimal path. The horizontal-gap closure is a prefix
@@ -204,16 +206,10 @@ def band_dp_stats_batch(
     Same band semantics as :func:`band_dp_batch`. Returns per problem the
     best score, its end ``(qe, te)``, and along the optimal path ending there
     the exact base matches (``matches``) and the diagonal steps
-    (``n_diag``); ties break as in the JAX version.
+    (``n_diag``); ties break as in the JAX version. CUDA tensors launch the
+    kernel A1, CPU tensors take its plain version
+    (``kernels/band_dp_stats.py``).
     """
-    P = q.shape[0]
-    zeros = torch.zeros((2, P, band), dtype=torch.int32, device=q.device)
-    best, (bm, bd), bqe, bte = _band_dp_rows(
-        q, t, band, params,
-        rider0=zeros,
-        diag_step=lambda is_match: torch.stack(
-            [is_match.to(torch.int32), torch.ones_like(zeros[0])]
-        ),
-        reset_rider=lambda i: zeros,
-    )
-    return {"score": best, "matches": bm, "n_diag": bd, "qe": bqe, "te": bte}
+    from ..kernels.band_dp_stats import band_dp_stats
+
+    return band_dp_stats(q, t, band, params)

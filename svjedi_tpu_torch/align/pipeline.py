@@ -947,6 +947,8 @@ def compute_winner_stats(
     winners: Winners,
     cfg: AlignConfig,
     device: torch.device,
+    dp=None,
+    timings: Optional[Dict] = None,
 ) -> None:
     """Fill ``winners.matches``/``blocklen`` by re-scoring winning spans.
 
@@ -957,8 +959,21 @@ def compute_winner_stats(
     absorb residual drift). Summed piece stats give the exact-match count
     and block length the reference's GAF consumers expect
     (filter-alignments.py:193-196).
+
+    Each bucket's pieces go to the DP in one call (on a card the kernel A1
+    then fills it; the JAX package cuts them into slices of 4,096). The
+    pieces are independent and the sums integer, so the batching changes
+    no output. ``dp`` replaces the stats DP (default
+    :func:`extend.band_dp_stats_batch`); ``timings`` gains the seconds of
+    the host's piece assembly (``audit_assembly_s``) and of the DP calls
+    up to their results on the host (``audit_dp_s``).
     """
+    import time
+
     from .extend import band_dp_stats_batch
+
+    if dp is None:
+        dp = band_dp_stats_batch
 
     n = len(winners.read)
     winners.matches = np.zeros(n, dtype=np.int64)
@@ -1010,44 +1025,52 @@ def compute_winner_stats(
 
     score_sum = np.zeros(n, dtype=np.int64)
     n_diag_sum = np.zeros(n, dtype=np.int64)
+    assembly_s = dp_s = 0.0
     for bucket in sorted(set(bucket_of.tolist())):
         sel = order[bucket_of == bucket]
-        for lo in range(0, len(sel), 4096):
-            chunk = sel[lo : lo + 4096]
-            P = len(chunk)
-            q = np.full((P, bucket), 4, dtype=np.int8)
-            t = np.full((P, bucket + B2), 4, dtype=np.int8)
-            for row, pi in enumerate(chunk):
-                wi = int(p_win[pi])
-                a, b = int(p_a[pi]), int(p_b[pi])
-                window = oriented_read(
-                    int(winners.read[wi]), int(winners.strand[wi])
-                )[a:b]
-                q[row, : len(window)] = window
-                # Target clamped to the winning span so the rectangle
-                # union stays exact.
-                seq = panel.paths[int(winners.path[wi])].seq
-                t_start = int(p_t0[pi])
-                src_lo = max(int(winners.ts[wi]), t_start, 0)
-                src_hi = min(
-                    int(winners.te[wi]) + 1,
-                    t_start + bucket + B2,
-                    len(seq),
-                )
-                if src_hi > src_lo:
-                    t[row, src_lo - t_start : src_hi - t_start] = seq[
-                        src_lo:src_hi
-                    ]
-            out = band_dp_stats_batch(
-                torch.from_numpy(q).to(device), torch.from_numpy(t).to(device),
-                B2, params,
+        t0 = time.perf_counter()
+        P = len(sel)
+        q = np.full((P, bucket), 4, dtype=np.int8)
+        t = np.full((P, bucket + B2), 4, dtype=np.int8)
+        for row, pi in enumerate(sel):
+            wi = int(p_win[pi])
+            a, b = int(p_a[pi]), int(p_b[pi])
+            window = oriented_read(
+                int(winners.read[wi]), int(winners.strand[wi])
+            )[a:b]
+            q[row, : len(window)] = window
+            # Target clamped to the winning span so the rectangle
+            # union stays exact.
+            seq = panel.paths[int(winners.path[wi])].seq
+            t_start = int(p_t0[pi])
+            src_lo = max(int(winners.ts[wi]), t_start, 0)
+            src_hi = min(
+                int(winners.te[wi]) + 1,
+                t_start + bucket + B2,
+                len(seq),
             )
-            host = torch.stack(
-                [out["matches"], out["n_diag"], out["score"]]
-            ).cpu().numpy().astype(np.int64)
-            np.add.at(winners.matches, p_win[chunk], host[0])
-            np.add.at(n_diag_sum, p_win[chunk], host[1])
-            np.add.at(score_sum, p_win[chunk], host[2])
+            if src_hi > src_lo:
+                t[row, src_lo - t_start : src_hi - t_start] = seq[
+                    src_lo:src_hi
+                ]
+        t1 = time.perf_counter()
+        out = dp(
+            torch.from_numpy(q).to(device), torch.from_numpy(t).to(device),
+            B2, params,
+        )
+        host = torch.stack(
+            [out["matches"], out["n_diag"], out["score"]]
+        ).cpu().numpy().astype(np.int64)
+        t2 = time.perf_counter()
+        assembly_s += t1 - t0
+        dp_s += t2 - t1
+        np.add.at(winners.matches, p_win[sel], host[0])
+        np.add.at(n_diag_sum, p_win[sel], host[1])
+        np.add.at(score_sum, p_win[sel], host[2])
+    if timings is not None:
+        timings["audit_assembly_s"] = (
+            timings.get("audit_assembly_s", 0.0) + assembly_s)
+        timings["audit_dp_s"] = timings.get("audit_dp_s", 0.0) + dp_s
     winners.blocklen[:] = np.maximum(qspan + tspan - n_diag_sum, 1)
     # Piece re-scores can deviate from the chain score in both directions
     # (piece cuts lose alignment continuity; the doubled band recovers
@@ -1238,7 +1261,8 @@ def align_and_count(
         winners = cross_cluster_prune(winners, chunk)
         if collect_audit:
             compute_winner_stats(chunk, panel, winners, align_cfg,
-                                 dev.device_of(disp.device_data))
+                                 dev.device_of(disp.device_data),
+                                 timings=timings)
         chunk_counts, chunk_audit = count_support(
             panel, winners, chunk, genotype_cfg.d_over, collect_audit,
             min_density=_min_density,

@@ -49,7 +49,7 @@ from .utils.native import load_native
 from .utils.stats import RunStats
 from .align.pipeline import align_and_count, resolve_engine, use_device_scan
 from .dist.mesh import local_devices, make_mesh
-from .kernels import band_dp_dma, band_dp_v3, dev_scan
+from .kernels import band_dp_dma, band_dp_stats, band_dp_v3, dev_scan
 
 
 def select_device() -> torch.device:
@@ -284,6 +284,7 @@ def run_pipeline(
     launches0 = band_dp_v3.launches
     rev_launches0 = band_dp_v3.rev_launches
     dma_launches0 = band_dp_dma.launches
+    stats_launches0 = band_dp_stats.launches
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     profiler = contextlib.nullcontext()
@@ -292,11 +293,12 @@ def run_pipeline(
         if device.type == "cuda":
             activities.append(torch.profiler.ProfilerActivity.CUDA)
         profiler = torch.profiler.profile(activities=activities)
+    align_timings: dict = {}
     with profiler, stats.timer("align"):
         counts, audit, winners = align_and_count(
             reads, panel, index, cfg.align, cfg.genotype, device=device,
             decoy=decoy, engine=engine, devices=align_devices,
-            chunk_reads=chunk_reads,
+            chunk_reads=chunk_reads, timings=align_timings,
         )
         for d in set(align_devices or [device]):
             if d.type == "cuda":
@@ -315,6 +317,12 @@ def run_pipeline(
     stats.set("band_dp_v3_launches", band_dp_v3.launches - launches0)
     stats.set("band_dp_v3_rev_launches", band_dp_v3.rev_launches - rev_launches0)
     stats.set("band_dp_dma_launches", band_dp_dma.launches - dma_launches0)
+    stats.set("band_dp_stats_launches",
+              band_dp_stats.launches - stats_launches0)
+    # The audit re-score's split: the host's piece assembly and the stats
+    # DP up to its results on the host (compute_winner_stats).
+    for key in ("audit_assembly_s", "audit_dp_s"):
+        stats.set(key, round(align_timings.get(key, 0.0), 4))
     if device.type == "cuda":
         stats.set(
             "device_max_memory_allocated",

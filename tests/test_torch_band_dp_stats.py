@@ -1,0 +1,344 @@
+"""The audit re-score's stats DP (A1) of the port vs the JAX package.
+
+``svjedi_tpu_torch.align.extend.band_dp_stats_batch`` (on the CPU: the
+plain version ``kernels/band_dp_stats.py:band_dp_stats_ref``) must equal
+``svjedi_tpu.align.extend.band_dp_stats_batch`` (XLA on the CPU) exactly on
+all five outputs: at the audit's bands (256, and 512 for ``cfg.band`` 256)
+and buckets, on ragged pieces, tied maxima, inputs where K1's (score, row)
+end rule and the one-pass kernels' per-cell rule part, and scores at which
+every row must run. A numpy model of the kernel's row skip, and
+``compute_winner_stats`` with whole-bucket batches, are held to JAX too.
+The CUDA kernel is held against its plain version on the card
+(``chip_smoke.py`` phase 2e and the gpu-marked test at the end).
+"""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from svjedi_tpu.align import pipeline as jpipe
+from svjedi_tpu.align.extend import DPParams as JaxDPParams
+from svjedi_tpu.align.extend import band_dp_stats_batch as jax_stats
+from svjedi_tpu.config import AlignConfig as JaxAlignConfig
+from svjedi_tpu.io.fastq import ReadSet as JaxReadSet
+from svjedi_tpu_torch.align import pipeline as tpipe
+from svjedi_tpu_torch.align.extend import (
+    DPParams, _band_dp_rows, band_dp_stats_batch,
+)
+from svjedi_tpu_torch.config import AlignConfig
+from svjedi_tpu_torch.io.fastq import ReadSet
+from svjedi_tpu_torch.kernels import band_dp_stats as a1
+from svjedi_tpu_torch.kernels.band_dp import rows_skip_exact
+
+# The plain DP runs thousands of tiny ops per call: one thread each is
+# faster than many, and keeps parallel test workers off each other's cores.
+torch.set_num_threads(1)
+
+KEYS = a1.STATS_COLS
+CPU = torch.device("cpu")
+
+
+def _pieces(seed: int, P: int, M: int, band: int):
+    """Audit-like pieces: a read window of m <= M bases (ragged, sentinel
+    rows after it) and the target window holding a noisy copy of it
+    (substitutions, indels) near the band's centre; then the edge and
+    tie-heavy cases: an all-sentinel read row, an all-sentinel target,
+    poly-A against poly-A, and di- and trinucleotide tandem repeats."""
+    rng = np.random.default_rng(seed)
+    q = np.full((P, M), 4, dtype=np.int8)
+    t = np.full((P, M + band), 4, dtype=np.int8)
+    for p in range(P):
+        m = int(rng.integers(M // 4, M + 1))
+        read = rng.integers(0, 4, m).astype(np.int8)
+        read[rng.random(m) < 0.01] = 4
+        q[p, :m] = read
+        copy = np.where(read == 4, rng.integers(0, 4, m), read).astype(np.int8)
+        flips = rng.random(m) < 0.1
+        copy[flips] = rng.integers(0, 4, int(flips.sum()))
+        copy = np.delete(copy, rng.integers(0, m, 3))
+        copy = np.insert(copy, rng.integers(0, len(copy), 3),
+                         rng.integers(0, 4, 3).astype(np.int8))
+        off = band // 2 + int(rng.integers(-20, 21))
+        n = min(len(copy), M + band - off)
+        t[p, off : off + n] = copy[:n]
+    q[0] = 4
+    t[1] = 4
+    q[2], t[2] = 0, 0
+    q[3], t[3] = np.resize([0, 1], M), np.resize([0, 1], M + band)
+    q[4], t[4] = np.resize([2, 0, 3], M), np.resize([1, 2, 0, 3], M + band)
+    return q, t
+
+
+def _two_local_alignments(M: int, band: int):
+    """One problem where K1's end rule and the per-cell rule part: two
+    separate local alignments of equal score, the first ending at an early
+    row on a high band offset, the second at a later row on a low one (the
+    gap between their diagonals costs more than either scores)."""
+    rng = np.random.default_rng(5)
+    x, y = (rng.integers(0, 4, 30).astype(np.int8) for _ in range(2))
+    q = np.full((1, M), 4, dtype=np.int8)
+    t = np.full((1, M + band), 4, dtype=np.int8)
+    k_hi, k_lo = band - 28, 20
+    q[0, :30] = x
+    t[0, k_hi : k_hi + 30] = x
+    q[0, 40:70] = y
+    t[0, 40 + k_lo : 70 + k_lo] = y
+    return q, t
+
+
+def _jax(q, t, band, params=DPParams()):
+    jp = JaxDPParams(params.match, params.mismatch, params.gap_open,
+                     params.gap_extend)
+    return {k: np.asarray(v) for k, v in jax_stats(q, t, band, jp).items()}
+
+
+def _assert_equal(got, ref):
+    for key in KEYS:
+        np.testing.assert_array_equal(np.asarray(got[key]), ref[key],
+                                      err_msg=key)
+
+
+@pytest.mark.parametrize("band, M, P", [(256, 512, 8), (256, 1024, 6),
+                                        (256, 2048, 6), (512, 2048, 6)])
+def test_stats_matches_jax(band, M, P):
+    q, t = _pieces(M + band, P, M, band)
+    ref = _jax(q, t, band)
+    launches = a1.launches
+    got = band_dp_stats_batch(torch.from_numpy(q), torch.from_numpy(t), band)
+    assert a1.launches == launches  # the plain version launches nothing
+    _assert_equal({k: v.numpy() for k, v in got.items()}, ref)
+    _assert_equal(a1.band_dp_stats_ref(torch.from_numpy(q),
+                                       torch.from_numpy(t), band), ref)
+    assert tuple(int(ref[k][0]) for k in KEYS) == (0, 0, 0, -1, -1)
+    assert tuple(int(ref[k][1]) for k in KEYS) == (0, 0, 0, -1, -1)
+    assert (ref["matches"][5:] > 0).all() and (ref["n_diag"] >= ref["matches"]).all()
+
+
+@pytest.mark.parametrize("band", [256, 512])
+def test_end_is_the_row_rule_not_the_per_cell_rule(band):
+    """The end is the first row whose maximum beats the best, then the
+    lowest offset in that row; the one-pass kernels' per-cell rule would
+    report the later alignment."""
+    M = 128
+    q, t = _two_local_alignments(M, band)
+    ref = _jax(q, t, band)
+    assert int(ref["score"][0]) == 60 and int(ref["qe"][0]) == 29
+    assert int(ref["te"][0]) == 29 + band - 28
+    got = band_dp_stats_batch(torch.from_numpy(q), torch.from_numpy(t), band)
+    _assert_equal({k: v.numpy() for k, v in got.items()}, ref)
+    zeros = torch.zeros((2, 1, band), dtype=torch.int32)
+    per_cell = _band_dp_rows(
+        torch.from_numpy(q), torch.from_numpy(t), band, DPParams(), zeros,
+        lambda m: torch.stack([m.to(torch.int32), torch.ones_like(zeros[0])]),
+        lambda i: zeros, per_cell=True)
+    assert int(per_cell[0][0]) == 60 and int(per_cell[2][0]) == 69
+
+
+#: Scores at which trailing sentinel rows may move the result, so the
+#: kernel runs every row: a zero gap open (open + extend 0) and a positive
+#: mismatch.
+EVERY_ROW = {"oe=0": dict(gap_open=2, gap_extend=-2),
+             "mismatch=1": dict(mismatch=1)}
+
+
+@pytest.mark.parametrize("scores", EVERY_ROW.values(), ids=EVERY_ROW.keys())
+@pytest.mark.parametrize("band", [256, 512])
+def test_stats_with_every_row_scores_matches_jax(scores, band):
+    params = DPParams(**scores)
+    assert not rows_skip_exact(params)
+    q, t = _pieces(71, 6, 512, band)
+    ref = _jax(q, t, band, params)
+    got = band_dp_stats_batch(torch.from_numpy(q), torch.from_numpy(t), band,
+                              params)
+    _assert_equal({k: v.numpy() for k, v in got.items()}, ref)
+
+
+#: Scores where rows_skip_exact holds.
+SKIP_SCORES = {"defaults": {}, "mismatch=0": dict(mismatch=0),
+               "gap_extend=0": dict(gap_extend=0),
+               "oe=-1": dict(gap_open=-1, gap_extend=0)}
+
+
+def _kernel_rows(q: np.ndarray, band: int) -> np.ndarray:
+    """The rows the kernel runs for each problem where it may skip: up to
+    its last non-sentinel read row, rounded up to the cells per lane (the
+    warp's maximum is at least that)."""
+    M = q.shape[1]
+    coded = q[:, ::-1] != 4
+    rows = np.where(coded.any(axis=1), M - coded.argmax(axis=1), 0)
+    cells = 16 if band == 512 else 8
+    return (rows + cells - 1) // cells * cells
+
+
+@pytest.mark.parametrize("scores", SKIP_SCORES.values(),
+                         ids=SKIP_SCORES.keys())
+@pytest.mark.parametrize("band", [256, 512])
+def test_row_skip_model_matches_jax_full_rows(scores, band):
+    """Each problem cut to the rows the kernel runs (its last non-sentinel
+    row + 1, rounded up) equals JAX's result over every row, wherever
+    rows_skip_exact holds; a problem with no coded row scores 0."""
+    params = DPParams(**scores)
+    assert rows_skip_exact(params)
+    M, P = 512, 8
+    q, t = _pieces(83, P, M, band)
+    ends = np.random.default_rng(84).integers(M // 4, M // 2 + 1, P)
+    q[np.arange(M)[None, :] >= ends[:, None]] = 4
+    ref = _jax(q, t, band, params)
+    rows = _kernel_rows(q, band)
+    assert rows.max() < M and rows[0] == 0
+    cut = {k: np.zeros(P, np.int32) for k in KEYS}
+    cut["qe"][:] = cut["te"][:] = -1
+    for r in np.unique(rows[rows > 0]):
+        sel = rows == r
+        out = a1.band_dp_stats_ref(torch.from_numpy(q[sel, :r].copy()),
+                                   torch.from_numpy(t[sel, : r + band].copy()),
+                                   band, params)
+        for k in KEYS:
+            cut[k][sel] = out[k].numpy()
+    _assert_equal(cut, ref)
+
+
+def test_packed_rider_and_kernel_shape_checks():
+    a1.check_rider(65535)
+    with pytest.raises(ValueError, match="M < 65536"):
+        a1.check_rider(65536)
+    with pytest.raises(ValueError, match="M < 65536"):
+        a1.band_dp_stats(torch.full((1, 65536), 4, dtype=torch.int8),
+                         torch.full((1, 65536 + 256), 4, dtype=torch.int8),
+                         256)
+    for band in a1.KERNEL_BANDS:
+        a1.check_kernel_shape(band, 2048)
+    with pytest.raises(ValueError, match="128, 256 or 512"):
+        a1.check_kernel_shape(384, 2048)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        a1.check_kernel_shape(512, 1032)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        a1.check_kernel_shape(256, 1028)
+    q = torch.full((4, 64), 4, dtype=torch.int8)
+    t = torch.full((4, 320), 4, dtype=torch.int8)
+    with pytest.raises(ValueError, match="expected t"):
+        a1.band_dp_stats(q, t[:, :300], 256)
+    with pytest.raises(TypeError):
+        a1.band_dp_stats(q.int(), t.int(), 256)
+    with pytest.raises(ValueError, match="unsupported device"):
+        a1.band_dp_stats(q.to("meta"), t.to("meta"), 256)
+
+
+def _audit_case(pkg_readset, pkg_winners):
+    """Reads that are noisy copies (indels included) of stretches of four
+    panel paths, half of them reverse-complemented, and one winner per read
+    whose span covers the copy; pieces fall into buckets 512 and 1024 at
+    block_rows 700."""
+    rng = np.random.default_rng(21)
+    paths = [rng.integers(0, 4, 6000).astype(np.int8) for _ in range(4)]
+    panel = SimpleNamespace(paths=[SimpleNamespace(seq=s, length=len(s))
+                                   for s in paths])
+    reads, fields = [], {k: [] for k in ("path", "strand", "qs", "qe", "ts",
+                                         "te", "score")}
+    for r in range(10):
+        pi = int(rng.integers(0, 4))
+        n = int(rng.integers(300, 1800))
+        ts = int(rng.integers(0, 6000 - n))
+        copy = paths[pi][ts : ts + n].copy()
+        flips = rng.random(n) < 0.08
+        copy[flips] = rng.integers(0, 4, int(flips.sum()))
+        copy = np.insert(np.delete(copy, rng.integers(0, n, 6)),
+                         rng.integers(0, n - 6, 6),
+                         rng.integers(0, 4, 6).astype(np.int8))
+        strand = r % 2
+        oriented = copy
+        read = copy if strand == 0 else np.where(copy < 4, 3 - copy,
+                                                 copy)[::-1].astype(np.int8)
+        reads.append(read)
+        fields["path"].append(pi)
+        fields["strand"].append(strand)
+        fields["qs"].append(3)
+        fields["qe"].append(len(oriented) - 4)
+        fields["ts"].append(ts + 2)
+        fields["te"].append(ts + n - 3)
+        fields["score"].append(int(1.5 * n))
+    codes = np.concatenate(reads)
+    offsets = np.concatenate([[0], np.cumsum([len(x) for x in reads])])
+    rs = pkg_readset(names=[f"r{i}" for i in range(len(reads))], codes=codes,
+                     offsets=offsets.astype(np.int64))
+    n = len(reads)
+    w = pkg_winners(read=np.arange(n), cluster=np.zeros(n, np.int64),
+                    **{k: np.asarray(v, np.int64) for k, v in fields.items()})
+    return rs, panel, w
+
+
+def _sliced_dp(pieces):
+    """The stats DP run on slices of ``pieces`` rows, results rejoined."""
+    def dp(q, t, band, params):
+        outs = [band_dp_stats_batch(q[lo:lo + pieces], t[lo:lo + pieces],
+                                    band, params)
+                for lo in range(0, q.shape[0], pieces)]
+        return {k: torch.cat([o[k] for o in outs]) for k in KEYS}
+    return dp
+
+
+@pytest.mark.parametrize("pieces", [None, 4096, 3])
+def test_compute_winner_stats_batching_matches_jax(pieces):
+    """Whole-bucket calls (``compute_winner_stats``'s rule), 4,096-piece
+    calls (the JAX package's slices) and 3-piece calls all give JAX's
+    4,096-piece result."""
+    dp = None if pieces is None else _sliced_dp(pieces)
+    jrs, panel, jw = _audit_case(JaxReadSet, jpipe.Winners)
+    trs, _, tw = _audit_case(ReadSet, tpipe.Winners)
+    jpipe.compute_winner_stats(jrs, panel, jw, JaxAlignConfig(block_rows=700))
+    timings = {}
+    launches = a1.launches
+    tpipe.compute_winner_stats(trs, panel, tw, AlignConfig(block_rows=700),
+                               CPU, dp=dp, timings=timings)
+    assert a1.launches == launches
+    assert timings["audit_assembly_s"] > 0 and timings["audit_dp_s"] > 0
+    assert (jw.matches > 0).all()
+    for f in ("matches", "blocklen", "rescore_deficit", "rescore_flag"):
+        np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f),
+                                      err_msg=f)
+
+
+def test_compute_winner_stats_takes_another_dp():
+    """``dp=`` replaces the stats DP (chip_smoke.py runs the plain version
+    through it on the card)."""
+    trs, panel, tw = _audit_case(ReadSet, tpipe.Winners)
+    calls = []
+
+    def dp(q, t, band, params):
+        calls.append((tuple(q.shape), band))
+        return a1.band_dp_stats_ref(q, t, band, params)
+
+    tpipe.compute_winner_stats(trs, panel, tw, AlignConfig(block_rows=700),
+                               CPU, dp=dp)
+    assert {b for _, b in calls} == {256}
+    assert {s[1] for s, _ in calls} == {512, 1024}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; runs on the card")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band, M", [(256, 512), (256, 2048), (512, 2048)])
+@pytest.mark.parametrize("scores", [{}, dict(gap_open=2, gap_extend=-2),
+                                    dict(mismatch=-200)],
+                         ids=["defaults", "oe=0", "wide"])
+def test_cuda_kernel_matches_plain_version(cuda_device, band, M, scores):
+    q, t = _pieces(91, 96, M, band)
+    q2, t2 = _two_local_alignments(M, band)
+    q, t = np.concatenate([q, q2]), np.concatenate([t, t2])
+    qd, td = (torch.from_numpy(x).to(cuda_device) for x in (q, t))
+    params = DPParams(**scores)
+    launches = a1.launches
+    got = band_dp_stats_batch(qd, td, band, params)
+    ref = a1.band_dp_stats_ref(qd, td, band, params)
+    torch.cuda.synchronize()
+    assert a1.launches == launches + 1
+    for key in KEYS:
+        np.testing.assert_array_equal(got[key].cpu().numpy(),
+                                      ref[key].cpu().numpy(), err_msg=key)

@@ -262,6 +262,112 @@ def test_seed_candidates_from_bitmask_match_host(port_native):
                                       getattr(via_host, f), err_msg=f)
 
 
+#: The CUDA kernel's tile: k-mer positions per block (csrc/dev_scan.cu).
+KERNEL_TILE = 4096
+
+
+def _funnel_l(lo, hi, sh):
+    """CUDA __funnelshift_l: the top 32 bits of (hi:lo) << sh."""
+    return (((hi << 32) | lo) << sh) >> 32 & 0xFFFFFFFF
+
+
+def _funnel_r(lo, hi, sh):
+    """CUDA __funnelshift_r: the low 32 bits of (hi:lo) >> sh."""
+    return (((hi << 32) | lo) >> sh) & 0xFFFFFFFF
+
+
+def _popc(x):
+    return np.array([bin(int(v)).count("1") for v in x], dtype=np.int64)
+
+
+def kernel_model(reads2, offsets, k, w, n_cap, tile=KERNEL_TILE):
+    """The kernel's formulation in numpy, tile by tile: words of 16 bases
+    (2-bit codes big-endian, complements little-endian, N and read-start
+    bit masks), each k-mer from two funnel shifts, the N and boundary tests
+    on the bit words, a segment tag from the start counts, van Herk/Gil-
+    Werman prefix and suffix argmins in blocks of w, and every window whose
+    two ends share a tag marking its argmin. Returns the bitmask."""
+    codes = np.asarray(reads2[:n_cap]).astype(np.int64)
+    offsets = np.asarray(offsets).astype(np.int64)
+    n_reads = len(offsets) - 1
+    nk = n_cap - k + 1
+    halo = w - 1
+    lo_base, hi_base = offsets[0], min(offsets[n_reads], n_cap)
+    mask2k = (1 << (2 * k)) - 1
+    bits = np.zeros(n_cap, dtype=bool)
+    for tile0 in range(0, n_cap, tile):
+        g0 = tile0 - halo
+        n_hash = tile + 2 * halo
+        g_end = g0 + n_hash + k - 1
+        wb = g0 // 16
+        n_words = (g_end - 1) // 16 - wb + 2
+        pos = wb * 16 + np.arange(n_words * 16)
+        inside = (pos >= 0) & (pos < n_cap)
+        c16 = np.where(inside, codes[np.clip(pos, 0, n_cap - 1)], 4)
+        c16 = c16.reshape(n_words, 16)
+        j = np.arange(16)
+        fw = ((c16 & 3) << (30 - 2 * j)).sum(1)
+        cm = ((3 - (c16 & 3)) << (2 * j)).sum(1)
+        nw = ((c16 >= 4).astype(np.int64) << j).sum(1)
+        st = np.zeros(n_words, dtype=np.int64)
+        for off in offsets[(offsets >= g0) & (offsets < g_end)] - wb * 16:
+            st[off >> 4] |= 1 << (off & 15)
+        cnt = np.concatenate([[0], np.cumsum(_popc(st))])[:n_words]
+
+        p = g0 + np.arange(n_hash)
+        pw = p - wb * 16
+        i, o = pw >> 4, pw & 15
+        fwd = _funnel_l(fw[i + 1], fw[i], 2 * o) >> (32 - 2 * k)
+        rc = _funnel_r(cm[i], cm[i + 1], 2 * o) & mask2k
+        n2 = nw[i] | (nw[i + 1] << 16)
+        s2 = st[i] | (st[i + 1] << 16)
+        in_read = ((p >= lo_base) & (p + k - 1 < hi_base)
+                   & (((s2 >> (o + 1)) & ((1 << (k - 1)) - 1)) == 0))
+        ok = in_read & (((n2 >> o) & ((1 << k) - 1)) == 0) & (fwd != rc)
+        mixed = kscan._mix32(torch.from_numpy(np.minimum(fwd, rc))).numpy()
+        h = np.where(ok, mixed, kscan.INVALID)
+        seg = np.where(in_read, cnt[i] + _popc(st[i] & ((2 << o) - 1)), -1)
+
+        pre = np.arange(n_hash)
+        suf = np.arange(n_hash)
+        for x0 in range(0, n_hash, w):
+            x1 = min(x0 + w, n_hash)
+            for x in range(x0 + 1, x1):
+                pre[x] = x if h[x] < h[pre[x - 1]] else pre[x - 1]
+            for x in range(x1 - 2, x0 - 1, -1):
+                suf[x] = x if h[x] <= h[suf[x + 1]] else suf[x + 1]
+        emit = np.zeros(n_hash, dtype=bool)
+        s = np.arange(n_hash - w + 1)
+        e = s + w - 1
+        ms, me = suf[s], pre[e]
+        m = np.where(h[ms] <= h[me], ms, me)
+        good = (seg[s] >= 0) & (seg[s] == seg[e]) & (h[m] != kscan.INVALID)
+        emit[m[good]] = True
+        t = np.arange(min(tile, n_cap - tile0))
+        bits[tile0 + t] = emit[t + halo] & (tile0 + t < nk)
+    return np.packbits(bits, bitorder="little")
+
+
+@pytest.mark.parametrize("k,w", KW)
+@pytest.mark.parametrize("which", ["edge reads", "tile edges"])
+def test_kernel_formulation_matches_plain_version_and_jax(k, w, which):
+    """The kernel's formulation (funnel-shifted k-mers, bit-mask validity,
+    sliding-window leftmost argmin) equals dev_scan_ref and JAX's
+    _scan_kernel bit for bit: N runs, palindromes, empty and short reads,
+    reads against the tiles' edges, a code count not a multiple of 8."""
+    codes, offsets = (_read_set(k, w) if which == "edge reads"
+                      else _tile_edge_set(k * 100 + w))
+    dd = tdev.upload(codes, _FakePanel(), CPU, {}, offsets=offsets)
+    n_cap = tscan._scan_cap(dd.n_codes, dd.n_bases)
+    ref = kscan.dev_scan_ref(dd.reads2, dd.offsets32, k, w, n_cap).numpy()
+    got = kernel_model(dd.reads2.numpy(), offsets, k, w, n_cap)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, _jax_bitmask(codes, offsets, k, w))
+    # Smaller tiles put more reads across tile edges.
+    np.testing.assert_array_equal(
+        kernel_model(dd.reads2.numpy(), offsets, k, w, n_cap, tile=64), ref)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k,w", KW)
 def test_cuda_kernel_matches_plain_version(k, w):
