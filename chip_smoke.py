@@ -10,11 +10,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    the max SM clock) that the kernels' bounds use. Builds the port's native
    host library (``svjedi_tpu_torch/native/fastio.cpp``) and the CUDA
    kernels (``svjedi_tpu_torch/kernels/csrc``: the DP kernels, the audit's
-   stats DP and the minimizer scan), prints ptxas's registers and
+   stats DP, the gather engine's DP and the minimizer scan), prints
+   ptxas's registers and
    spills for each build (or that the library was cached) and the DPX
    instructions in the SASS of K1/K1' (8 builds), K3 (4), K4 (4) and A1
-   (6); fails if a K1/K1' build or a narrow K3, K4 or A1 build has no DPX
-   add-max (VIADDMNMX).
+   (6) and G1 (6); fails if a K1/K1' build or a narrow K3, K4, A1 or G1
+   build has no DPX add-max (VIADDMNMX).
 2. Kernel vs plain: the band_dp_v3 kernel (K1) against its plain PyTorch
    version on the same CUDA tensors, exactly, at every bucket of
    ``AlignConfig.buckets`` with band 128 and at bucket 2048 with band 256
@@ -48,6 +49,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    result must equal the fused-fetch kernel's on the same problems.
    Then the 10 Mb / 1,000 SV / 20x configuration is simulated (the scale
    config's seeds) for the phases below.
+2f. The gather engine's DP (G1, ``band_dp_gather``) against its plain
+   version (``band_dp_gather_ref``) on the same CUDA tensors, exactly
+   (score, qs, ts, qe, te), at every bucket with band 128 and at bucket
+   2048 with bands 256 and 512 (P = 256): ragged m, an all-sentinel read
+   row and an all-sentinel target row, problems scoring 0, padding rows
+   (all sentinel) at the end, tandem repeats and two equal local
+   alignments, where the row rule (G1's) and the per-cell rule (K1's, K4's)
+   pick different spans: G1 must differ from K4 on at least one problem;
+   at bucket 2048 also a zero gap open and a positive mismatch (every row
+   runs) and both wide builds (mismatch -200, and mismatch 100). Then at
+   P = 32768, bucket 2048, band 128 times G1 and the plain version, with
+   the bound.
 2d. The minimizer scan (D1, ``dev_scan``: the sliding-window design)
    against its plain version, bit for bit, at k/w 15/10 and 11/5 on edge-case reads (N runs, palindromes,
    reads of 5, k - 1, k, k + w - 2 and k + w - 1 bases, an empty read,
@@ -62,7 +75,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    matches, n_diag, qe, te), at buckets 512, 1024 and 2048 with band 256
    and at bucket 2048 with band 512: ragged pieces, an all-sentinel read
    row and an all-sentinel target row, tandem repeats (tied maxima across
-   rows and band offsets), two equal local alignments that K1's end rule
+   rows and band offsets), two equal local alignments that the row rule
    and the per-cell rule tell apart; at bucket 2048 also a zero gap open
    and a positive mismatch (every row runs) and the wide build (mismatch
    -200). Then ``compute_winner_stats`` on the winners of one production
@@ -83,6 +96,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    band_dp_v3 launches == 0 and A1 launches > 0; prints its align stage, reads/s, peak device
    memory, the VCF records that differ from phase 3's, and per winner field
    (GAF spans, score, mapq) how many winners the two engines disagree on.
+4b. Gather path: ``run_pipeline(..., engine="gather")`` in this process on
+   phase 3's files, gated like phase 4, with G1 launches > 0, K1, K1' and
+   K3 launches == 0 and A1 launches > 0; prints what phase 4 prints.
 5. Bench: ``SVJT_BENCH_CONFIG=scale python -m svjedi_tpu_torch.bench`` as
    a subprocess; it must exit 0 and print one JSON line with a positive
    ``scale_reads_per_s_per_chip``; its stderr timings are printed.
@@ -94,7 +110,14 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    ``cuda:0`` with engine ``v3`` must launch K1 and K1' and equal
    ``dp_filter_count_v3(engine="v3i")`` (the plain versions, on the card)
    exactly, with a positive count; both timed, beside the one-device
-   ``v3`` step. Then ``run_pipeline`` with ``--data-shards 2
+   ``v3`` step. The one-device ``xla`` step (the dry run's truth, G1 on the
+   card) must launch G1 and equal the same step on G1's plain version on
+   the card in every output; its counts must equal the sharded ``v3``
+   step's, or differ only through tied optima (every winner whose span or
+   status moved keeps its score, and both engines' spans hold an optimal
+   alignment). It is timed beside them, and so is its copy of the
+   transposed windows.
+   Then ``run_pipeline`` with ``--data-shards 2
    --graph-shards 2`` on four entries of ``cuda:0``, on phase 3's files:
    its VCF byte-equal to phase 3's, accuracy 100.0, ``data_shards`` 2,
    ``mesh`` "2x2", K1, K1' and A1 launched, ``seed_path`` "device", no
@@ -111,7 +134,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 
 Every phase prints its seconds. The kernels' launches in the JSON record
 are those of one path's run each: phase 3 (`run`) for K1, K1', D1 and A1,
-phase 4 for K3, phase 2c for K4; a log line gives the other paths'.
+phase 4 for K3, phase 2c for K4, phase 4b for G1; a log line gives the
+other paths'.
 
 Everything runs through ``svjedi_tpu_torch``; nothing of JAX or of the JAX
 package is imported. The second-to-last line is the kernels' JSON record;
@@ -121,6 +145,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import re
@@ -163,19 +188,21 @@ INT32_LANES_PER_SM = 64
 #: closure), imad + max (the packed best-cell key). The one-pass kernels (K3, K4)
 #: add five selects that carry the start: vertical source, diagonal vs
 #: vertical, reset at 0, horizontal source, best start. The audit's stats
-#: DP (A1) adds to those one add: the diagonal step's increment.
-OPS_PER_CELL = {"k1": 9, "onepass": 14, "stats": 15}
+#: DP (A1) adds to those one add: the diagonal step's increment. The
+#: gather engine's DP (G1) runs K3/K4's cell.
+OPS_PER_CELL = {"k1": 9, "onepass": 14, "stats": 15, "band_dp_gather": 14}
 DPX_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX")
 #: (kernel name in the SASS, number of builds, regex of the builds that must
 #: use VIADDMNMX). K1 and K1': forward and reverse x narrow and wide x band
 #: 128 and 256; K3 and K4: narrow and wide x band 128 and 256, the narrow
-#: builds (template flag kWide = false, mangled "Lb0E") checked; A1: narrow
-#: and wide x band 128, 256 and 512.
+#: builds (template flag kWide = false, mangled "Lb0E") checked; A1 and G1:
+#: narrow and wide x band 128, 256 and 512.
 DPX_CHECKS = (
     ("band_dp_v3_kernel", 8, r"."),
     ("band_dp_dma_kernel", 4, r"band_dp_dma_kernelILi\d+ELb0E"),
     ("band_dp_onepass_kernel", 4, r"band_dp_onepass_kernelILi\d+ELb0E"),
     ("band_dp_stats_kernel", 6, r"band_dp_stats_kernelILi\d+ELi\d+ELb0E"),
+    ("band_dp_gather_kernel", 6, r"band_dp_gather_kernelILi\d+ELi\d+ELb0E"),
 )
 
 
@@ -222,14 +249,14 @@ def phase_device():
         log("[build] ptxas report unavailable: the kernels' library was "
             "cached, not rebuilt")
     for src in ("band_dp_v3.cu", "band_dp_onepass.cu", "band_dp_stats.cu",
-                "dev_scan.cu"):
+                "band_dp_gather.cu", "dev_scan.cu"):
         for line in build.ptxas_report.get(src, "").splitlines():
             if ("registers" in line or "spill" in line
                     or "entry function" in line):
                 log(f"[build] ptxas {src}: {line.strip()}")
     # Every K1 / K1' build must use DPX add-max, and so must the narrow
-    # builds (kWide false) of K3, K4 and A1; their wide builds are printed
-    # only.
+    # builds (kWide false) of K3, K4, A1 and G1; their wide builds are
+    # printed only.
     for kernel, n_builds, must in DPX_CHECKS:
         found = dpx_in_sass(build.library_path(), kernel)
         for fn, ops in found.items():
@@ -247,9 +274,9 @@ def phase_device():
     return peak_ops
 
 
-def dpx_in_sass(lib: Path, kernel: str) -> dict:
-    """Per instance of ``kernel`` in the library's SASS, the count of each
-    DPX opcode (cuobjdump -sass)."""
+@functools.lru_cache(maxsize=None)
+def sass_of(lib: Path) -> str:
+    """The library's SASS (cuobjdump -sass), disassembled once."""
     cuobjdump = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                      "bin", "cuobjdump")
     if not cuobjdump.exists():
@@ -258,8 +285,14 @@ def dpx_in_sass(lib: Path, kernel: str) -> dict:
                           capture_output=True, text=True, timeout=300)
     if proc.returncode != 0:
         fail(f"cuobjdump -sass exited {proc.returncode}: {proc.stderr[-500:]}")
+    return proc.stdout
+
+
+def dpx_in_sass(lib: Path, kernel: str) -> dict:
+    """Per instance of ``kernel`` in the library's SASS, the count of each
+    DPX opcode."""
     found, fn = {}, None
-    for line in proc.stdout.splitlines():
+    for line in sass_of(lib).splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1) if kernel in m.group(1) else None
@@ -304,10 +337,14 @@ def make_problems(seed: int, P: int, bucket: int, sort_m: bool = False,
     return q.T.copy(), t.T.copy(), m
 
 
-def cuda_time_ms(fn, reps: int) -> float:
+def cuda_time_ms(fn, reps: int, warm: bool = False) -> float:
+    """Mean ms of ``fn`` over ``reps`` calls (CUDA events), after one
+    warm-up call unless ``warm`` says the same call just ran (a plain
+    version, run at these shapes by the comparison before its timing)."""
     import torch
 
-    fn()
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -469,7 +506,7 @@ def phase_kernel(peak_ops: float):
     )
     plain_ms = cuda_time_ms(
         lambda: v3.band_dp_v3_fwd_ref(qT, tT, bucket, BAND, params, nvb),
-        reps=2,
+        reps=2, warm=True,
     )
     n = P - 100
     rows = np.repeat(np.minimum((bounds + 7) // 8 * 8, bucket), 128)[:n]
@@ -496,7 +533,8 @@ def phase_kernel(peak_ops: float):
         lambda: v3.band_dp_v3_rev_ref(qT2, tT2, bucket, BAND, params,
                                       fwd=v3.band_dp_v3_fwd), reps=10)
     rev_plain_ms = cuda_time_ms(
-        lambda: v3.band_dp_v3_rev_ref(qT2, tT2, bucket, BAND, params), reps=1)
+        lambda: v3.band_dp_v3_rev_ref(qT2, tT2, bucket, BAND, params), reps=1,
+        warm=True)
     rev_need = m2.cpu().numpy().astype(np.int64).clip(min=0)
     rev_cells = float(rev_need.sum()) * BAND
     rev_bytes = float(rev_need.sum() + (rev_need + BAND).sum()) + 16 * P
@@ -811,7 +849,7 @@ def phase_onepass_kernels(peak_ops: float):
                                         params=params)),
     ):
         ms = cuda_time_ms(kern, reps=10)
-        plain_ms = cuda_time_ms(plain, reps=1)
+        plain_ms = cuda_time_ms(plain, reps=1, warm=True)
         times[name] = (ms, plain_ms)
     # Bounds: the rows each problem needs (K3's m; K4's rows up to its last
     # read code other than the sentinel), each input byte once, 32 bytes
@@ -1032,7 +1070,7 @@ def phase_dev_scan(peak_ops: float, paths, genome):
         lambda: kscan.dev_scan(dd.reads2, dd.offsets32, k, w, n_cap), reps=20)
     plain_ms = cuda_time_ms(
         lambda: kscan.dev_scan_ref(dd.reads2, dd.offsets32, k, w, n_cap),
-        reps=2)
+        reps=2, warm=True)
     # Bound: the k-mer positions inside the codes, the run steps this
     # chunk's hashes take, each code byte read once, offsets once, the
     # bitmask written once.
@@ -1077,7 +1115,7 @@ def make_pieces(seed: int, P: int, M: int, band: int):
     copy with indels near the band's centre. Then the edge and tie cases:
     an all-sentinel read row, an all-sentinel target row, poly-A against
     poly-A, di- and trinucleotide repeats, and two equal local alignments,
-    the first ending at an earlier row on a higher band offset (K1's end
+    the first ending at an earlier row on a higher band offset (the row
     rule reports it, the per-cell rule the second). Returns numpy q, t."""
     rng = np.random.default_rng(seed)
     q = np.full((P, M), 4, dtype=np.int8)
@@ -1147,7 +1185,7 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
         ref = compare(tag, q, t, band)
         if (int(ref["score"][5]), int(ref["qe"][5]),
                 int(ref["te"][5])) != (60, 29, band + 1):
-            fail(f"two equal local alignments: the end is not K1's row rule "
+            fail(f"two equal local alignments: the end is not the row rule "
                  f"({tag}: qe {int(ref['qe'][5])}, te {int(ref['te'][5])})")
         extra = ""
         if bucket == 2048:
@@ -1215,7 +1253,7 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
         compare(f"production {label}", qq, tt, band)
         ms = cuda_time_ms(lambda: a1.band_dp_stats(qq, tt, band), reps=10)
         plain_ms = cuda_time_ms(lambda: a1.band_dp_stats_ref(qq, tt, band),
-                                reps=1)
+                                reps=1, warm=True)
         # Bound: the rows each piece needs (to its last read code other
         # than the sentinel), each input byte once, 32 bytes out each.
         coded = qq != 4
@@ -1267,93 +1305,112 @@ def gaf_winners(path: Path):
     return winners
 
 
-def compare_winners(ours: Path, theirs: Path) -> str:
+def compare_winners(ours: Path, theirs: Path, engine: str) -> str:
     """Per field, how many winners two runs' GAF files disagree on."""
     a, b = gaf_winners(ours), gaf_winners(theirs)
     both = a.keys() & b.keys()
     fields = ("qs", "qe", "ts", "te", "matches", "mapq")
     diff = {k: sum(a[w][k] != b[w][k] for w in both) for k in fields}
     return (f"{len(both)} winners in both, {len(a.keys() - b.keys())} only "
-            f"in dma, {len(b.keys() - a.keys())} only in v3; differing: "
+            f"in {engine}, {len(b.keys() - a.keys())} only in v3; differing: "
             + ", ".join(f"{k} {v}" for k, v in diff.items()))
 
 
-def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path):
-    """The one-pass engine (fused-fetch kernel) through run_pipeline."""
+#: The one-pass engines run_pipeline can name, by the kernel each launches:
+#: K3 (fetches its own windows) and G1 (on gathered windows).
+ONEPASS_KERNELS = {"dma": "band_dp_dma", "gather": "band_dp_gather"}
+
+
+def phase_onepass_path(out: Path, paths, n_reads, v3_prefix: Path,
+                       engine: str):
+    """A one-pass engine (``dma``: K3; ``gather``: G1) through run_pipeline;
+    returns its DP kernel's and A1's launches."""
     import contextlib
+    import importlib
     import io
 
     import torch
 
     from svjedi_tpu_torch.config import PipelineConfig
     from svjedi_tpu_torch.evals.contingency import contingency_report
-    from svjedi_tpu_torch.kernels import (
-        band_dp_dma, band_dp_stats, band_dp_v3, dev_scan,
-    )
+    from svjedi_tpu_torch.kernels import band_dp_stats, band_dp_v3, dev_scan
     from svjedi_tpu_torch.pipeline import run_pipeline
 
-    prefix = out / "dma"
+    label = f"[{engine}-path]"
+    kernels = {name: importlib.import_module(f"svjedi_tpu_torch.kernels.{name}")
+               for name in ONEPASS_KERNELS.values()}
+    kernel = ONEPASS_KERNELS[engine]
+    prefix = out / engine
     cfg = PipelineConfig(vcf=paths["vcf"], ref=paths["ref"],
                          reads=(str(paths["reads"]),), prefix=str(prefix),
                          write_gaf=True)
     err = io.StringIO()
-    band_dp_dma.launches = 0
-    band_dp_v3.launches = 0
-    dev_scan.launches = 0
-    band_dp_stats.launches = 0
+    for mod in (*kernels.values(), band_dp_v3, dev_scan, band_dp_stats):
+        mod.launches = 0
+    band_dp_v3.rev_launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
-        run_pipeline(cfg, device=torch.device("cuda:0"), engine="dma")
+        run_pipeline(cfg, device=torch.device("cuda:0"), engine=engine)
     wall = time.perf_counter() - t0
-    launches, v3_launches = band_dp_dma.launches, band_dp_v3.launches
+    launches = kernels[kernel].launches
+    others = {name: mod.launches for name, mod in kernels.items()
+              if name != kernel}
+    others["band_dp_v3"] = band_dp_v3.launches  # K1 and K1' both
     stats_launches = band_dp_stats.launches
     stderr = err.getvalue()
     for line in stderr.splitlines()[-8:]:
-        log(f"[onepass-path] stderr: {line}")
+        log(f"{label} stderr: {line}")
     faults = [w for w in FAULT_WARNINGS if w in stderr]
     if faults:
-        fail(f"fault warnings in the one-pass run: {faults}")
+        fail(f"fault warnings in the {engine} run: {faults}")
     if launches <= 0:
-        fail("the one-pass path launched the band_dp_dma kernel no time")
-    if v3_launches != 0:
-        fail(f"the one-pass path launched the v3 kernel {v3_launches} times")
+        fail(f"the {engine} path launched the {kernel} kernel no time")
+    for name, n in others.items():
+        if n != 0:
+            fail(f"the {engine} path launched the {name} kernel {n} times")
     with open(f"{prefix}_stats.json") as fh:
         stats = json.load(fh)
     counters, timings = stats["counters"], stats["timings_s"]
-    if counters.get("engine") != "dma":
-        fail(f"the one-pass run recorded engine {counters.get('engine')!r}")
-    check_native(counters, "the one-pass path")
-    check_device_scan(counters, n_reads, "the one-pass path")
+    if counters.get("engine") != engine:
+        fail(f"the {engine} run recorded engine {counters.get('engine')!r}")
+    if counters.get(f"{kernel}_launches") != launches:
+        fail(f"the {engine} run recorded {counters.get(f'{kernel}_launches')}"
+             f" {kernel} launches, not {launches}")
+    check_native(counters, f"the {engine} path")
+    check_device_scan(counters, n_reads, f"the {engine} path")
     if stats_launches <= 0 or check_stats_launches(
-            counters, "the one-pass path") != stats_launches:
-        fail(f"the one-pass path launched the band_dp_stats kernel "
+            counters, f"the {engine} path") != stats_launches:
+        fail(f"the {engine} path launched the band_dp_stats kernel "
              f"{stats_launches} times (stats: "
              f"{counters.get('band_dp_stats_launches')})")
     vcf = Path(f"{prefix}_genotype.vcf")
     report = contingency_report(paths["vcf"], str(vcf))
     acc = re.search(r"accuracy: ([\d.]+)", report)
-    log("[onepass-path] " + " | ".join(report.strip().splitlines()))
+    log(f"{label} " + " | ".join(report.strip().splitlines()))
     if acc is None or float(acc.group(1)) != 100.0:
-        fail("one-pass genotyping accuracy is not 100.0")
+        fail(f"{engine} genotyping accuracy is not 100.0")
     ours = vcf_records(vcf)
     theirs = vcf_records(Path(f"{v3_prefix}_genotype.vcf"))
     differ = [(a, b) for a, b in zip(ours, theirs) if a != b]
     n_diff = len(differ) + abs(len(ours) - len(theirs))
     for a, b in differ[:3]:  # engines may place tied optima differently
         fa, fb = a.split("\t"), b.split("\t")
-        log(f"[onepass-path] differs at {fa[0]}:{fa[1]}: dma {fa[-1]} vs v3 "
+        log(f"{label} differs at {fa[0]}:{fa[1]}: {engine} {fa[-1]} vs v3 "
             f"{fb[-1]}")
     # Engines agree on scores; among equally scoring optima each may pick
     # another span, and a span can move a read across a junction's rule.
-    log("[onepass-path] winners (GAF) dma vs v3: "
-        + compare_winners(Path(f"{prefix}.gaf"), Path(f"{v3_prefix}.gaf")))
+    log(f"{label} winners (GAF) {engine} vs v3: "
+        + compare_winners(Path(f"{prefix}.gaf"), Path(f"{v3_prefix}.gaf"),
+                          engine))
     align_s = float(timings["align"])
-    log(f"[onepass-path] run wall {wall:.1f} s; align stage {align_s:.2f} s, "
+    log(f"{label} run wall {wall:.1f} s; align stage {align_s:.2f} s, "
         f"{n_reads / align_s:.1f} reads/s; max_memory_allocated "
-        f"{counters.get('device_max_memory_allocated')} bytes; band_dp_dma "
-        f"launches {launches}; band_dp_v3 launches {v3_launches}; VCF records "
-        f"differing from the v3 run: {n_diff} of {len(theirs)}; audit "
-        f"re-score warnings {stderr.count(AUDIT_WARNING)}; "
+        f"{counters.get('device_max_memory_allocated')} bytes; {kernel} "
+        f"launches {launches}; "
+        + "; ".join(f"{name} launches {n}" for name, n in others.items())
+        + f"; VCF records differing from the v3 run: {n_diff} of "
+        f"{len(theirs)}; audit re-score warnings "
+        f"{stderr.count(AUDIT_WARNING)}; "
         + audit_split(counters, stats_launches))
     return launches, stats_launches
 
@@ -1383,6 +1440,133 @@ def phase_pregathered_path(data, vecs, dma_out, bucket: int):
         f"band_dp_onepass equals band_dp_dma; band_dp_onepass launches "
         f"{launches}")
     return launches
+
+
+# ---- phase 2f -----------------------------------------------------------------
+
+#: Where make_gather_problems puts two equal local alignments.
+PAIR = 6
+
+
+def make_gather_problems(seed: int, P: int, bucket: int, band: int):
+    """make_problems' windows as (P, bucket) and (P, bucket + band) numpy
+    int8 (ragged m, an empty read, an empty target, a problem scoring 0),
+    then poly-A against poly-A, a dinucleotide and a trinucleotide tandem
+    repeat, at PAIR two equal local alignments (the first ends at row 29
+    on band offset band - 28, the second at row 69 on offset 20: the row
+    rule reports the first, the per-cell rule the second), and 16 padding
+    rows (all sentinel, as n_valid leaves them) at the end."""
+    qT, tT, _ = make_problems(seed, P, bucket, sort_m=True, band=band)
+    q, t = qT.T.copy(), tT.T.copy()
+    width = bucket + band
+    q[3], t[3] = 0, 0
+    q[4], t[4] = np.resize([0, 1], bucket), np.resize([0, 1], width)
+    q[5], t[5] = np.resize([2, 0, 3], bucket), np.resize([1, 2, 0, 3], width)
+    pair = np.random.default_rng(5)
+    x, y = (pair.integers(0, 4, 30).astype(np.int8) for _ in range(2))
+    q[PAIR], t[PAIR] = 4, 4
+    q[PAIR, :30], t[PAIR, band - 28:band + 2] = x, x
+    q[PAIR, 40:70], t[PAIR, 60:90] = y, y
+    q[-16:] = 4
+    return q, t
+
+
+def phase_gather_kernel(peak_ops: float):
+    """G1: the gather engine's DP against its plain version on the card,
+    exactly, on edge and tie cases at every bucket; times it."""
+    import torch
+
+    from svjedi_tpu_torch.align.extend import DPParams
+    from svjedi_tpu_torch.config import AlignConfig
+    from svjedi_tpu_torch.kernels import band_dp as k4
+    from svjedi_tpu_torch.kernels import band_dp_gather as g1
+
+    dev = torch.device("cuda:0")
+    max_err = 0
+    n_cases = 0
+
+    def compare(tag, q, t, band, p=DPParams()):
+        nonlocal max_err, n_cases
+        got = g1.band_dp_gather(q, t, band, p)
+        ref = g1.band_dp_gather_ref(q, t, band, p)
+        torch.cuda.synchronize()
+        for key in g1.GATHER_COLS:
+            e = int((got[key].to(torch.int64) - ref[key].to(torch.int64))
+                    .abs().max())
+            max_err = max(max_err, e)
+            if e != 0:
+                fail(f"the gather kernel disagrees with its plain version: "
+                     f"{key}, {tag} (max abs err {e})")
+        n_cases += 1
+        return got
+
+    # Every bucket at band 128 (the pipeline's); bucket 2048 at band 256
+    # and at 512, the kernel's other builds.
+    cases = [(bucket, BAND) for bucket in AlignConfig().buckets]
+    cases += [(2048, 256), (2048, 512)]
+    for bucket, band in cases:
+        t0 = time.perf_counter()
+        q, t = make_gather_problems(bucket + band, 256, bucket, band)
+        q, t = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
+        tag = f"bucket={bucket} band={band}"
+        got = compare(tag, q, t, band)
+        pair = tuple(int(got[k][PAIR]) for k in g1.GATHER_COLS)
+        if pair != (60, 0, band - 28, 29, band + 1):
+            fail(f"two equal local alignments: G1's end is not the row rule "
+                 f"({tag}: {pair})")
+        # K4's per-cell end on the same windows: its kernel where it has a
+        # build, else its plain version.
+        onepass = (k4.band_dp_onepass if band in (128, 256)
+                   else k4.band_dp_onepass_ref)
+        per_cell = onepass(q, t, band)
+        differ = torch.zeros(q.shape[0], dtype=torch.bool, device=dev)
+        for key in g1.GATHER_COLS:
+            differ |= got[key] != per_cell[key]
+        n_differ = int(differ.sum())
+        if not differ[PAIR]:
+            fail(f"G1 and K4 report the same span for two equal local "
+                 f"alignments ({tag})")
+        extra = ""
+        if bucket == 2048:
+            # Every row runs (a zero gap open; a positive mismatch) and the
+            # wide builds (a mismatch outside int8; scores past 2^16).
+            for p in (DPParams(gap_open=2, gap_extend=-2),
+                      DPParams(mismatch=1), DPParams(mismatch=-200),
+                      DPParams(mismatch=100)):
+                compare(f"{p} {tag}", q, t, band, p)
+            extra = ("; also with a zero gap open, a positive mismatch and "
+                     "in both wide builds")
+        log(f"[gather] bucket {bucket:5d} band {band} P 256: band_dp_gather "
+            f"exact{extra}; K4's per-cell end differs on {n_differ} problems "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    # The production shape of phase 2b (P = 32768, bucket 2048, band 128).
+    P, bucket = 32768, 2048
+    qT, tT, _ = make_problems(7, P, bucket, sort_m=True)
+    q = torch.from_numpy(qT.T.copy()).to(dev)
+    t = torch.from_numpy(tT.T.copy()).to(dev)
+    compare("P=32768 bucket=2048", q, t, BAND)
+    ms = cuda_time_ms(lambda: g1.band_dp_gather(q, t, BAND), reps=10)
+    plain_ms = cuda_time_ms(lambda: g1.band_dp_gather_ref(q, t, BAND), reps=1,
+                            warm=True)
+    # Bound: the rows each problem needs (to its last read code other than
+    # the sentinel), each input byte once, 32 bytes out each.
+    coded = qT[::-1] != 4
+    need = np.where(coded.any(axis=0), bucket - coded.argmax(axis=0), 0)
+    need = float(need.astype(np.int64).sum())
+    cells = need * BAND
+    n_bytes = need + (need + BAND * P) + 32 * P
+    ops = OPS_PER_CELL["band_dp_gather"]
+    bms, by = bound_ms(cells, ops, n_bytes, peak_ops)
+    log(f"[gather] band_dp_gather P {P} bucket {bucket} band {BAND}: kernel "
+        f"{ms:.3f} ms ({cells / ms / 1e6:.2f} Gcell/s), plain "
+        f"{plain_ms:.3f} ms; bound {bms:.3f} ms by {by} "
+        f"({cells / 1e9:.3f} Gcell x {ops} ops), {100 * bms / ms:.1f}% of "
+        f"bound; {n_cases} exact comparisons, max abs err {max_err}")
+    del q, t
+    torch.cuda.empty_cache()
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by}
 
 
 # ---- phase 5 ------------------------------------------------------------------
@@ -1433,7 +1617,8 @@ def cuda_wall_s(fn, reps: int) -> float:
 
 def phase_dist_step(paths):
     """The sharded count step at production width on a 2 x 2 mesh of
-    cuda:0; returns its K1 and K1' launches."""
+    cuda:0, then the one-device ``xla`` step (phase_xla_step); returns the
+    sharded step's K1 and K1' launches and the xla step's G1 launches."""
     import torch
 
     from svjedi_tpu_torch.dist.engine import (
@@ -1504,9 +1689,120 @@ def phase_dist_step(paths):
         f"{sharded_s:.3f} s, one-device v3 step {single_s:.3f} s, plain "
         f"(v3i) {plain_s:.3f} s (host clock to a synchronised card, medians "
         f"of 3, 3 and 1 calls)")
+    g1_launches = phase_xla_step(args, kw, prob["n_groups"], got)
     del prob, args, got, ref
     torch.cuda.empty_cache()
-    return fwd_launches, rev_launches
+    return fwd_launches, rev_launches, g1_launches
+
+
+#: Every output of the count step.
+STEP_OUTPUTS = ("counts", "score", "qs", "ts", "qe", "te", "is_winner")
+
+
+def span_scores(qT, tT, out, idx, toff, band: int, params):
+    """The best score of problems ``idx`` on their windows clamped to the
+    spans in ``out`` (read rows qs..qe, target columns ts..te, path
+    coordinates less ``toff``): the score ``out`` claims exactly where the
+    span holds an optimal alignment."""
+    import torch
+
+    from svjedi_tpu_torch.kernels import band_dp_gather as g1
+
+    q, t = qT[:, idx].T, tT[:, idx].T
+    rows = torch.arange(q.shape[1], device=q.device)
+    cols = torch.arange(t.shape[1], device=q.device)
+    qs, qe = out["qs"][idx, None], out["qe"][idx, None]
+    ts, te = (out["ts"][idx] - toff)[:, None], (out["te"][idx] - toff)[:, None]
+    q = torch.where((rows >= qs) & (rows <= qe), q, 4).to(torch.int8)
+    t = torch.where((cols >= ts) & (cols <= te), t, 4).to(torch.int8)
+    return g1.band_dp_gather(q.contiguous(), t.contiguous(), band,
+                             params)["score"]
+
+
+def phase_xla_step(args, kw, n_groups: int, sharded_counts):
+    """The dry run's one-device truth, the ``xla`` step, on the card: it
+    must launch G1, equal the same step on G1's plain version in every
+    output, and count what the sharded ``v3`` step counts. Returns G1's
+    launches."""
+    import torch
+
+    from svjedi_tpu_torch.align.device import _prep_v3_windows_packed
+    from svjedi_tpu_torch.dist.engine import dp_filter_count_v3
+    from svjedi_tpu_torch.kernels import band_dp_gather as g1
+
+    def step(engine):
+        return dp_filter_count_v3(*args, n_groups=n_groups, engine=engine,
+                                  **kw)
+
+    g1.launches = 0
+    xla = step("xla")
+    torch.cuda.synchronize()
+    launches = g1.launches
+    if launches <= 0:
+        fail("the xla count step launched the band_dp_gather kernel no time")
+    kernel = g1.band_dp_gather
+    g1.band_dp_gather = g1.band_dp_gather_ref  # band_dp_batch's route
+    try:
+        t0 = time.perf_counter()
+        plain = step("xla")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        g1.band_dp_gather = kernel
+    for key in STEP_OUTPUTS:
+        if not torch.equal(xla[key], plain[key]):
+            fail(f"the xla step with G1 differs from the step on its plain "
+                 f"version in {key}")
+    qT, tT = _prep_v3_windows_packed(*args[:5], kw["bucket"], kw["band"])
+    agree = "counts equal to the sharded v3 step's"
+    if not torch.equal(xla["counts"], sharded_counts):
+        # The engines agree on scores, not on spans: xla ends by the row
+        # rule with G1's starts, v3 by K1's per-cell rule with K1′'s
+        # starts. Counts may then differ only through winners whose spans
+        # are each an optimal alignment's (tied optima).
+        v3 = step("v3")
+        bad = (xla["counts"] != sharded_counts).any(dim=1).nonzero()[:, 0]
+        log(f"[dist] xla counts differ from the sharded v3 step's at tags "
+            f"{bad.tolist()[:20]}: xla {xla['counts'][bad].tolist()[:20]}, "
+            f"v3 {sharded_counts[bad].tolist()[:20]}")
+        moved = torch.stack([xla[k] != v3[k]
+                             for k in STEP_OUTPUTS[1:]]).any(dim=0)
+        moved = (moved & (xla["is_winner"] | v3["is_winner"])).nonzero()[:, 0]
+        for i in moved[:10].tolist():
+            log(f"[dist] candidate {i}: " + "; ".join(
+                f"{name} " + " ".join(f"{k} {int(out[k][i])}"
+                                      for k in STEP_OUTPUTS[1:])
+                for name, out in (("xla", xla), ("v3", v3))))
+        if len(moved) == 0:
+            fail("the xla step's counts differ from the sharded v3 step's "
+                 "with the same winners and spans")
+        if not torch.equal(xla["score"][moved], v3["score"][moved]):
+            fail("the xla step's counts differ from the sharded v3 step's, "
+                 "and so do the winners' scores: not a tie")
+        toff = (args[4][2] - args[5])[moved]
+        for name, out in (("xla", xla), ("v3", v3)):
+            held = span_scores(qT, tT, out, moved, toff, kw["band"],
+                               kw["params"])
+            short = moved[held != out["score"][moved]]
+            if len(short):
+                fail(f"the xla step's counts differ from the sharded v3 "
+                     f"step's, and the {name} span of candidates "
+                     f"{short.tolist()[:10]} holds no optimal alignment")
+        agree = (f"counts differ from the sharded v3 step's at {len(bad)} "
+                 f"tags (sums {int(xla['counts'].sum())} and "
+                 f"{int(sharded_counts.sum())}); every one of the "
+                 f"{len(moved)} winners whose span or status moved has "
+                 f"equal scores and both spans optimal (tied optima)")
+    xla_s = cuda_wall_s(lambda: step("xla"), reps=3)
+    copy_ms = cuda_time_ms(lambda: (qT.T.contiguous(), tT.T.contiguous()),
+                           reps=10)
+    log(f"[dist] one-device xla step (G1): every output equal to the step on "
+        f"G1's plain version, {agree}; G1 "
+        f"launches {launches}; xla step {xla_s:.3f} s (median of 3), on the "
+        f"plain version {plain_s:.3f} s (1 call); its copy of the "
+        f"transposed windows {copy_ms:.3f} ms (CUDA events, {qT.shape[1]} "
+        f"problems x {qT.shape[0]} + {tT.shape[0]} bytes)")
+    return launches
 
 
 def phase_dist_run(out: Path, paths, v3_prefix: Path):
@@ -1715,6 +2011,7 @@ def main() -> int:
         "2b", phase_onepass_kernels, peak_ops)
     k4_launches = timed("2c", phase_pregathered_path, *prod)
     del prod  # phase 4 reads the card's peak memory: free phase 2b's buffers
+    gather_kern = timed("2f", phase_gather_kernel, peak_ops)
 
     import torch
 
@@ -1732,21 +2029,25 @@ def main() -> int:
             "3", phase_main_path, Path(tmp), paths, n_reads)
         phase3_wall = time.perf_counter() - t3
         dma_launches, stats4 = timed("4", phase_onepass_path, Path(tmp),
-                                     paths, n_reads, v3_prefix)
+                                     paths, n_reads, v3_prefix, "dma")
+        g1_launches, stats4b = timed("4b", phase_onepass_path, Path(tmp),
+                                     paths, n_reads, v3_prefix, "gather")
         timed("5", phase_bench)
-        step_fwd, step_rev = timed("6", phase_dist_step, paths)
+        step_fwd, step_rev, step_g1 = timed("6", phase_dist_step, paths)
         run_fwd, run_rev, stats6 = timed("6 run", phase_dist_run, Path(tmp),
                                          paths, v3_prefix)
         stats7 = timed("7", phase_multihost_any, Path(tmp), paths, v3_prefix,
                        t_start, phase3_wall)
 
     # Each kernel's launches in the JSON line are those of its own path's
-    # run (K1, K1', D1 and A1: phase 3, `run`; K3: phase 4; K4: phase 2c);
-    # the other paths' counts, each gated > 0 in its phase, are logged here.
+    # run (K1, K1', D1 and A1: phase 3, `run`; K3: phase 4; K4: phase 2c;
+    # G1: phase 4b); the other paths' counts, each gated > 0 in its phase,
+    # are logged here.
     log(f"[kernels] launches of the other paths: K1 sharded step {step_fwd}, "
         f"--data-shards/--graph-shards run {run_fwd}; K1' {step_rev}, "
-        f"{run_rev}; A1 dma path {stats4}, --data-shards/--graph-shards run "
-        f"{stats6}, --multihost {stats7}")
+        f"{run_rev}; A1 dma path {stats4}, gather path {stats4b}, "
+        f"--data-shards/--graph-shards run {stats6}, --multihost {stats7}; "
+        f"G1 xla count step {step_g1}")
     source = "svjedi_tpu_torch/kernels/csrc/band_dp_onepass.cu"
     v3_source = "svjedi_tpu_torch/kernels/csrc/band_dp_v3.cu"
     print(json.dumps({"kernels": [{
@@ -1805,6 +2106,14 @@ def main() -> int:
         "launches": stats3,
         "library_ms": None,
         **stats_kern,
+    }, {
+        "name": "band_dp_gather",
+        "route": "cuda",
+        "source": "svjedi_tpu_torch/kernels/csrc/band_dp_gather.cu",
+        "replaces": "svjedi_tpu/align/extend.py:65",
+        "launches": g1_launches,
+        "library_ms": None,
+        **gather_kern,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

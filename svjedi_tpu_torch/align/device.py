@@ -7,8 +7,9 @@ Counterpart of ``svjedi_tpu/align/device.py``. Three engines score windows:
 - ``dma``: the one-pass kernel that fetches its own windows from the flat
   buffers (``kernels/band_dp_dma.py``);
 - ``gather``: a byte gather of the windows, then the one-pass
-  ``band_dp_batch`` (``align/extend.py``); the default on the CPU, as in
-  the JAX package.
+  ``band_dp_batch`` (``align/extend.py``: the kernel G1 on a card, its
+  plain version on the CPU); the default on the CPU, as in the JAX
+  package.
 
 The buffer layout is the JAX package's, byte for byte, so uploaded state
 can be compared exactly:
@@ -227,6 +228,48 @@ def _prep_v3_windows_packed(rw, rn, pw, pn, meta: torch.Tensor, bucket: int,
     tvalid = (t_pos >= t_lo[None, :]) & (t_pos < t_hi[None, :])
     tT = torch.where(tvalid, tT, 4).to(torch.int8)
     return qT.contiguous(), tT.contiguous()
+
+
+def _prep_v3_windows(reads2: torch.Tensor, panel_padded: torch.Tensor,
+                     meta: torch.Tensor, bucket: int, band: int):
+    """:func:`_prep_v3_windows_packed` packing the buffers inline (the JAX
+    package's test and reference path; production packs once at upload)."""
+    rw, rn = _pack_words(reads2)
+    pw, pn = _pack_words(panel_padded)
+    return _prep_v3_windows_packed(rw, rn, pw, pn, meta, bucket, band)
+
+
+def window_score_v3_fwd(
+    data: DeviceData,
+    meta: torch.Tensor,  # (5, P) int32, rows per META_ROWS
+    bucket: int,
+    band: int,
+    params: DPParams,
+    n_valid=None,
+) -> torch.Tensor:
+    """v3 forward pass: (P, 3) int32 [score, qe, te] in window coords."""
+    from ..kernels.band_dp_v3 import band_dp_v3_fwd
+
+    qT, tT = _prep_v3_windows_packed(*data.packed_words(), meta, bucket, band)
+    return band_dp_v3_fwd(qT, tT, bucket, band, params, n_valid)
+
+
+def window_score_v3_rev(
+    data: DeviceData,
+    meta: torch.Tensor,  # (5, P): q_start, m' = qe + 1, t_start, t_lo, t_hi'
+    bucket: int,
+    band: int,
+    params: DPParams,
+    n_valid=None,
+) -> torch.Tensor:
+    """v3 reverse pass on end-clamped windows: (P, 3) [score, qs, ts]. The
+    meta's m row, qe + 1, is the reverse kernel's ``m``, as in
+    :func:`window_score_v3_rev_flat`."""
+    from ..kernels.band_dp_v3 import band_dp_v3_rev
+
+    qT, tT = _prep_v3_windows_packed(*data.packed_words(), meta, bucket, band)
+    return band_dp_v3_rev(qT, tT, bucket, band, params, n_valid,
+                          m=meta[1].contiguous())
 
 
 # ---- flat-metadata dispatch (production path) ----

@@ -2,13 +2,15 @@
 
 PyTorch counterpart of ``svjedi_tpu/align/extend.py``: the scoring
 constants, :func:`band_dp_batch` (the one-pass DP of the ``gather`` engine,
-which reports starts and ends) and :func:`band_dp_stats_batch` (the audit
-re-score of winning spans, which reports match statistics). The JAX
-versions are XLA ``lax.scan`` loops, not Pallas kernels. ``band_dp_batch``
-is plain PyTorch on whichever device its inputs lie: one Python iteration
-per read row, each row one set of tensor ops over ``(P, band)``.
-``band_dp_stats_batch`` goes through ``kernels/band_dp_stats.py``: the CUDA
-kernel A1 on a card, the same row loop on the CPU.
+which reports starts and ends), :func:`band_dp_stats_batch` (the audit
+re-score of winning spans, which reports match statistics) and the exact
+O(mn) oracle :func:`smith_waterman_full`. The JAX versions of the two DPs
+are XLA ``lax.scan`` loops, not Pallas kernels; here each goes through a
+CUDA kernel on a card and its plain version on the CPU:
+``band_dp_batch`` through ``kernels/band_dp_gather.py`` (G1),
+``band_dp_stats_batch`` through ``kernels/band_dp_stats.py`` (A1). A plain
+version is one Python iteration per read row, each row one set of tensor
+ops over ``(P, band)``.
 
 The two share one row loop (:func:`_band_dp_rows`); they differ only in what
 rides along each cell's optimal path. The horizontal-gap closure is a prefix
@@ -27,8 +29,9 @@ are the cascade's.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 NEG = -(1 << 30)
@@ -162,23 +165,17 @@ def _band_dp_rows(
     return best, brider, bqe, bte
 
 
-def band_dp_batch(
-    q: torch.Tensor,  # (P, M) int8 read windows, padded with 4 (N)
-    t: torch.Tensor,  # (P, M + band) int8 target windows, padded with 4
+def band_dp_starts(
+    q: torch.Tensor,  # (P, M) read windows, padded with 4 (N)
+    t: torch.Tensor,  # (P, M + band) target windows, padded with 4
     band: int,
     params: DPParams = DPParams(),
     per_cell: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """Batched banded local alignment (the one-pass ``gather`` engine).
-
-    Cell (i, k) pairs read position i with target-window position j = i + k
-    (the caller centres the band by slicing the target at d0 - band//2).
-    Returns per problem the best score and the inclusive window coordinates
-    of the alignment span: ``qs/qe`` (read) and ``ts/te`` (target window).
-    A problem scoring 0 reports ``qs = ts = 0`` and ``qe = te = -1``.
-    ``per_cell`` picks the one-pass kernels' end among tied optima instead
-    (:func:`_band_dp_rows`; ``kernels/band_dp.py``).
-    """
+    """The plain row loop with starts riding along: :func:`band_dp_batch`'s
+    contract (the plain version of the kernel G1), or with ``per_cell`` the
+    one-pass kernels' end among tied optima (K3/K4's plain version,
+    ``kernels/band_dp.py``)."""
     P = q.shape[0]
     dev = q.device
     k_idx = torch.arange(band, device=dev, dtype=torch.int32).expand(P, band)
@@ -193,6 +190,32 @@ def band_dp_batch(
         per_cell=per_cell,
     )
     return {"score": best, "qs": bqs, "ts": bts, "qe": bqe, "te": bte}
+
+
+def band_dp_batch(
+    q: torch.Tensor,  # (P, M) int8 read windows, padded with 4 (N)
+    t: torch.Tensor,  # (P, M + band) int8 target windows, padded with 4
+    band: int,
+    params: DPParams = DPParams(),
+    per_cell: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Batched banded local alignment (the one-pass ``gather`` engine).
+
+    Cell (i, k) pairs read position i with target-window position j = i + k
+    (the caller centres the band by slicing the target at d0 - band//2).
+    Returns per problem the best score and the inclusive window coordinates
+    of the alignment span: ``qs/qe`` (read) and ``ts/te`` (target window).
+    A problem scoring 0 reports ``qs = ts = 0`` and ``qe = te = -1``. CUDA
+    tensors launch the kernel G1, CPU tensors take its plain version
+    (``kernels/band_dp_gather.py``). ``per_cell`` picks the one-pass
+    kernels' end among tied optima instead, always in the plain row loop:
+    it is K4's plain version (``kernels/band_dp.py``), never a kernel.
+    """
+    if per_cell:
+        return band_dp_starts(q, t, band, params, per_cell=True)
+    from ..kernels.band_dp_gather import band_dp_gather
+
+    return band_dp_gather(q, t, band, params)
 
 
 def band_dp_stats_batch(
@@ -213,3 +236,54 @@ def band_dp_stats_batch(
     from ..kernels.band_dp_stats import band_dp_stats
 
     return band_dp_stats(q, t, band, params)
+
+
+# Copied verbatim from svjedi_tpu/align/extend.py:smith_waterman_full.
+def smith_waterman_full(
+    q: np.ndarray, t: np.ndarray, params: DPParams = DPParams()
+) -> Tuple[int, int, int, int, int]:
+    """Exact O(mn) local affine alignment (tests only).
+
+    Returns (score, qs, ts, qe, te), end coordinates inclusive.
+    """
+    m, n = len(q), len(t)
+    oe, ext = params.open_extend, params.gap_extend
+    H = np.zeros((n + 1,), dtype=np.int64)
+    E = np.full((n + 1,), NEG, dtype=np.int64)  # horizontal (gap in t)
+    F = np.full((n + 1,), NEG, dtype=np.int64)  # vertical
+    SH = [(0, j) for j in range(n + 1)]  # start of alignment ending here
+    SE = [(0, 0)] * (n + 1)
+    SF = [(0, 0)] * (n + 1)
+    best = (0, 0, 0, -1, -1)
+    for i in range(m):
+        H_prev = H.copy()
+        SH_prev = list(SH)
+        H[0] = 0
+        SH[0] = (i + 1, 0)
+        for j in range(1, n + 1):
+            sub = (
+                params.match
+                if (q[i] == t[j - 1] and q[i] < 4)
+                else params.mismatch
+            )
+            e_open, e_ext = H[j - 1] + oe, E[j - 1] + ext
+            E[j] = max(e_open, e_ext)
+            SE[j] = SH[j - 1] if e_open >= e_ext else SE[j - 1]
+            f_open, f_ext = H_prev[j] + oe, F[j] + ext
+            new_F = max(f_open, f_ext)
+            SF[j] = SH_prev[j] if f_open >= f_ext else SF[j]
+            F[j] = new_F
+            diag = H_prev[j - 1] + sub
+            h = max(0, diag, E[j], new_F)
+            if h == 0:
+                SH[j] = (i + 1, j)  # next diagonal consumer starts there
+            elif h == diag:
+                SH[j] = SH_prev[j - 1]
+            elif h == new_F:
+                SH[j] = SF[j]
+            else:
+                SH[j] = SE[j]
+            H[j] = h
+            if h > best[0]:
+                best = (int(h), SH[j][0], SH[j][1], i, j - 1)
+    return best

@@ -184,6 +184,68 @@ def candidate_windows(
     return rw_start, rw_end, m, keep
 
 
+# Copied verbatim from svjedi_tpu/align/pipeline.py:build_problem_batches.
+def build_problem_batches(
+    reads: ReadSet,
+    panel: Panel,
+    index: PanelIndex,
+    cands: Candidates,
+    cfg: AlignConfig,
+    batch_size: int = 512,
+):
+    """Yield fixed-shape DP problem batches for a candidate set.
+
+    Host-materialized variant (tests/debug); the production path gathers
+    windows on device (align/device.py). Yields ``(chunk_indices, q_batch,
+    t_batch, t_starts, rw_start_chunk)`` per batch, grouped by bucket.
+    """
+    B = cfg.band
+    path_len = index.path_len[cands.path]
+    rw_start, rw_end, m, keep = candidate_windows(reads, index, cands, cfg)
+    order = np.flatnonzero(keep)
+    bucket_of = np.array(
+        [_pick_bucket(int(v), cfg.buckets) for v in m[order]], dtype=np.int64
+    )
+
+    rc_cache: Dict[int, np.ndarray] = {}
+
+    def oriented_read(read_id: int, strand: int) -> np.ndarray:
+        if strand == 0:
+            return reads.seq(read_id)
+        if read_id not in rc_cache:
+            rc_cache[read_id] = revcomp_codes(reads.seq(read_id))
+        return rc_cache[read_id]
+
+    for bucket in sorted(set(bucket_of.tolist())):
+        sel = order[bucket_of == bucket]
+        for lo in range(0, len(sel), batch_size):
+            chunk = sel[lo : lo + batch_size]
+            P = len(chunk)
+            q_batch = np.full((P, bucket), 4, dtype=np.int8)
+            t_batch = np.full((P, bucket + B), 4, dtype=np.int8)
+            t_starts = np.zeros(P, dtype=np.int64)
+            for row, ci in enumerate(chunk):
+                read_id = int(cands.read[ci])
+                strand = int(cands.strand[ci])
+                a, b = int(rw_start[ci]), int(rw_end[ci])
+                window = oriented_read(read_id, strand)[a:b]
+                q_batch[row, : len(window)] = window
+                # Target window so that band cell (i, k) ↔ path position
+                # t_start + i + k with t_start = (d0 + a) - B/2.
+                t_start = int(cands.d0[ci]) + a - B // 2
+                t_starts[row] = t_start
+                pl = int(path_len[ci])
+                src_lo = max(0, t_start)
+                src_hi = min(pl, t_start + bucket + B)
+                if src_hi > src_lo:
+                    dst_lo = src_lo - t_start
+                    seq = panel.paths[int(cands.path[ci])].seq
+                    t_batch[row, dst_lo : dst_lo + (src_hi - src_lo)] = seq[
+                        src_lo:src_hi
+                    ]
+            yield chunk, q_batch, t_batch, t_starts, rw_start[chunk]
+
+
 def _round_up_128(P: int) -> int:
     """Batch width: P rounded up to whole 128-problem row-bound groups.
 
@@ -739,6 +801,43 @@ def collect_rev(dispatches: Sequence[ChunkDispatch]) -> List[List[np.ndarray]]:
     for d in dispatches:
         per.append([next(it) for _ in d.rev_batches])
     return per
+
+
+def align_candidates(
+    reads: ReadSet,
+    panel: Panel,
+    index: PanelIndex,
+    cands: Candidates,
+    cfg: AlignConfig,
+    batch_size: int = 32768,
+    device_data=None,
+    *,
+    device: Optional[torch.device] = None,
+) -> Winners:
+    """Score all candidates and reduce to per-(read, cluster) winners.
+
+    One chunk, no decoy, no audit, the default engine
+    (``svjedi_tpu/align/pipeline.py:834``). Without ``device_data`` the
+    reads and panel are uploaded to ``device`` (default ``cuda:0``, which
+    raises where no card is visible).
+    """
+    from . import device as dev
+
+    if device_data is None:
+        if device is None:
+            from ..pipeline import select_device
+
+            device = select_device()
+        device_data = dev.upload(reads.codes, panel, device)
+    disp = dispatch_chunk(
+        reads, panel, index, cands, cfg, device_data, batch_size=batch_size
+    )
+    (host_rows,) = collect_outs([disp])
+    winners, win = finalize_chunk(reads, index, cfg, disp, host_rows)
+    dispatch_rev(cfg, disp, winners, win)
+    (rev_rows,) = collect_rev([disp])
+    patch_rev(cfg, disp, winners, rev_rows)
+    return prune_secondaries(winners, reads, cfg)
 
 
 # Copied verbatim from svjedi_tpu/align/pipeline.py:prune_secondaries.

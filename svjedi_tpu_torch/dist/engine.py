@@ -80,7 +80,8 @@ def dp_filter_count_v3(
     ``engine``: ``v3`` is the two-pass ``band_dp_v3`` (K1, then K1′ on the
     end-clamped windows, on CUDA tensors; their plain versions on CPU
     tensors), ``v3i`` the same wrapper on the plain forward pass on either
-    device, ``xla`` the one-pass ``band_dp_batch``. The reverse pass runs
+    device, ``xla`` the one-pass ``band_dp_batch`` (the kernel G1 on CUDA
+    tensors, its plain version on CPU tensors). The reverse pass runs
     for every candidate. ``meta``, ``path_start``, ``group`` and
     ``cand_path`` may be arrays; they are moved to the device.
     """
@@ -98,7 +99,8 @@ def dp_filter_count_v3(
         fwd = v3.band_dp_v3_fwd if engine == "v3" else v3.band_dp_v3_fwd_ref
         out = v3.band_dp_v3(qT, tT, bucket, band, params, fwd=fwd)
     else:
-        out = band_dp_batch(qT.T, tT.T, band, params)
+        # The one-pass DP takes (P, rows) windows: a copy of the transposes.
+        out = band_dp_batch(qT.T.contiguous(), tT.T.contiguous(), band, params)
     score = out["score"].to(i32)
     qs, qe = out["qs"].to(i32), out["qe"].to(i32)
     # Window coords → path coords (meta row 2 is absolute into the padded

@@ -80,7 +80,9 @@ def onepass_plain(
     return torch.stack([res[c] for c in OUT_COLS], dim=1)
 
 
-def _check(q: torch.Tensor, t: torch.Tensor, band: int) -> None:
+def check_windows(q: torch.Tensor, t: torch.Tensor, band: int) -> None:
+    """Raise unless q and t are the pre-gathered entries' windows: int8
+    ``(P, M)`` and ``(P, M + band)`` on one device."""
     if q.dim() != 2 or t.dim() != 2:
         raise ValueError("q and t must be 2-D (P, M) and (P, M + band)")
     P, M = q.shape
@@ -93,7 +95,11 @@ def _check(q: torch.Tensor, t: torch.Tensor, band: int) -> None:
         raise TypeError(f"q/t must be int8, got {q.dtype}/{t.dtype}")
     if q.device != t.device:
         raise ValueError(f"q on {q.device} but t on {t.device}")
-    check_packing(M, band)
+
+
+def _check(q: torch.Tensor, t: torch.Tensor, band: int) -> None:
+    check_windows(q, t, band)
+    check_packing(q.shape[1], band)
 
 
 def _as_dict(out: torch.Tensor) -> Dict[str, torch.Tensor]:

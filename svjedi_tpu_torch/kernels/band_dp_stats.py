@@ -23,6 +23,7 @@ from typing import Dict
 import torch
 
 from ..align.extend import DPParams, _band_dp_rows
+from .band_dp import check_windows
 
 #: Kernel launches since import (or since a caller reset it to 0). Counted
 #: only where the CUDA kernel is launched, never by the plain version.
@@ -35,19 +36,8 @@ KERNEL_BANDS = (128, 256, 512)
 
 
 def _check(q: torch.Tensor, t: torch.Tensor, band: int) -> None:
-    if q.dim() != 2 or t.dim() != 2:
-        raise ValueError("q and t must be 2-D (P, M) and (P, M + band)")
-    P, M = q.shape
-    if t.shape != (P, M + band):
-        raise ValueError(
-            f"expected t ({P}, {M + band}) for q {tuple(q.shape)}, got "
-            f"{tuple(t.shape)}"
-        )
-    if q.dtype != torch.int8 or t.dtype != torch.int8:
-        raise TypeError(f"q/t must be int8, got {q.dtype}/{t.dtype}")
-    if q.device != t.device:
-        raise ValueError(f"q on {q.device} but t on {t.device}")
-    check_rider(M)
+    check_windows(q, t, band)
+    check_rider(q.shape[1])
 
 
 def check_rider(rows: int) -> None:

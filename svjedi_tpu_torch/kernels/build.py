@@ -158,6 +158,10 @@ def load_library() -> ctypes.CDLL:
             ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.band_dp_stats_launch.restype = i32
+        lib.band_dp_gather_launch.argtypes = [
+            ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.band_dp_gather_launch.restype = i32
         i64 = ctypes.c_longlong
         lib.band_dp_dma_launch.argtypes = [
             ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr,

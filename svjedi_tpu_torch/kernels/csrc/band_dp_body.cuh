@@ -1,8 +1,9 @@
 // The one-pass DP body (dp_body) and what its pre-gathered entries share:
-// K4 (band_dp_onepass.cu, band_dp_onepass_kernel) and A1, the audit's
-// stats DP (band_dp_stats.cu). K3 (band_dp_dma_kernel) runs the same body
-// on windows it fetches itself. The contract, layout and tie rules are
-// band_dp_onepass.cu's head comment; A1's rider and end rule are at
+// K4 (band_dp_onepass.cu, band_dp_onepass_kernel), A1, the audit's stats
+// DP (band_dp_stats.cu), and G1, the gather engine's DP
+// (band_dp_gather.cu). K3 (band_dp_dma_kernel) runs the same body on
+// windows it fetches itself. The contract, layout and tie rules are
+// band_dp_onepass.cu's head comment; the riders and end rules are at
 // dp_body.
 
 #pragma once
@@ -60,18 +61,20 @@ __device__ __forceinline__ int warp_rows(int own_rows, int all_rows,
 // lane of the warp calls it (a dead group still takes part in shuffles); a
 // live group's lane 0 writes the problem's 8 outputs to o.
 //
-// kStats false (K3, K4): the rider is the packed start (qs << 16 | ts), a
-// reset takes ((i + 1) << 16) + i + 1 + k, and the problem's end is the
-// lowest band offset among the cells at the maximum, each cell at the
-// first row of its own best. Output [score, qs, ts, qe, te, 0, 0, 0].
-// kStats true (A1): the rider is (n_diag << 16 | matches), 0 at the start
-// and at a reset; a diagonal step adds (1 << 16) + is_match, one
-// three-input add of the match bit, which the narrow build takes from a
-// second prmt of a per-row match word (byte `code` = 1). The end is K1's:
-// the first row whose maximum beats the best, then the lowest band offset
-// in that row, i.e. the cells ordered by (score, earlier row, lower
-// offset). Output [score, matches, n_diag, qe, te, 0, 0, 0].
-template <int G, int C, bool kWide, bool kStats, class Src>
+// Two compile-time choices, each with its own code path:
+// kStats, the rider. False (K3, K4, G1): the packed start (qs << 16 | ts);
+// a reset takes ((i + 1) << 16) + i + 1 + k. True (A1): (n_diag << 16 |
+// matches), 0 at the start and at a reset; a diagonal step adds (1 << 16)
+// + is_match, one three-input add of the match bit, which the narrow build
+// takes from a second prmt of a per-row match word (byte `code` = 1).
+// kRowEnd, the end. False (K3, K4, as K1 in band_dp_v3.cu): the lowest
+// band offset among the cells at the maximum, each cell at the first row of
+// its own best. True (A1, G1): band_dp_batch's row rule, the first row
+// whose maximum beats the best, then the lowest band offset in that row,
+// i.e. the cells ordered by (score, earlier row, lower offset).
+// Output [score, qs, ts, qe, te, 0, 0, 0] with the start rider, [score,
+// matches, n_diag, qe, te, 0, 0, 0] with the stats rider.
+template <int G, int C, bool kWide, bool kStats, bool kRowEnd, class Src>
 __device__ __forceinline__ void dp_body(const Src& src, int rows, int gl,
                                         bool live, int match, int mismatch,
                                         int oe, int ext,
@@ -242,10 +245,14 @@ __device__ __forceinline__ void dp_body(const Src& src, int rows, int gl,
       BQE[c] = BEST[c] > 0 ? kRowMask - (KEY[c] & kRowMask) : -1;
     }
   }
-  if constexpr (kStats) {
-    // K1's end: the highest score, then the earliest row, then the lowest
-    // offset (a cell's row is the first of its own best).
-    int best = BEST[0], qsel = BQE[0], kmin = k0, bs = BS[0];
+  int best, qsel, kmin, bs;
+  if constexpr (kRowEnd) {
+    // The row rule: the highest score, then the earliest row, then the
+    // lowest offset (a cell's row is the first of its own best).
+    best = BEST[0];
+    qsel = BQE[0];
+    kmin = k0;
+    bs = BS[0];
 #pragma unroll
     for (int c = 1; c < C; ++c) {
       if (BEST[c] > best || (BEST[c] == best && BQE[c] < qsel)) {
@@ -268,48 +275,43 @@ __device__ __forceinline__ void dp_body(const Src& src, int rows, int gl,
         bs = os;
       }
     }
-    if (gl == 0 && live) {
-      o[0] = best;
-      o[1] = (int)((uint32_t)bs & 0xFFFFu);
-      o[2] = (int)((uint32_t)bs >> 16);
-      o[3] = qsel;
-      o[4] = qsel + kmin;
-      o[5] = 0;
-      o[6] = 0;
-      o[7] = 0;
+  } else {
+    best = BEST[0];
+#pragma unroll
+    for (int c = 1; c < C; ++c) best = max(best, BEST[c]);
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      best = max(best, __shfl_xor_sync(kFull, best, off, G));
+    kmin = 1 << 30;
+    qsel = -1;
+    bs = 0;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (BEST[c] == best && k0 + c < kmin) {
+        kmin = k0 + c;
+        qsel = BQE[c];
+        bs = BS[c];
+      }
     }
-    return;
-  }
-  int best = BEST[0];
 #pragma unroll
-  for (int c = 1; c < C; ++c) best = max(best, BEST[c]);
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1)
-    best = max(best, __shfl_xor_sync(kFull, best, off, G));
-  int kmin = 1 << 30, qsel = -1, bs = 0;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (BEST[c] == best && k0 + c < kmin) {
-      kmin = k0 + c;
-      qsel = BQE[c];
-      bs = BS[c];
-    }
-  }
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) {
-    const int ok = __shfl_xor_sync(kFull, kmin, off, G);
-    const int oq = __shfl_xor_sync(kFull, qsel, off, G);
-    const int os = __shfl_xor_sync(kFull, bs, off, G);
-    if (ok < kmin) {
-      kmin = ok;
-      qsel = oq;
-      bs = os;
+    for (int off = G / 2; off > 0; off >>= 1) {
+      const int ok = __shfl_xor_sync(kFull, kmin, off, G);
+      const int oq = __shfl_xor_sync(kFull, qsel, off, G);
+      const int os = __shfl_xor_sync(kFull, bs, off, G);
+      if (ok < kmin) {
+        kmin = ok;
+        qsel = oq;
+        bs = os;
+      }
     }
   }
   if (gl == 0 && live) {
+    // The rider's halves: (qs, ts) of a start, (n_diag, matches) of stats.
+    const int hi = (int)((uint32_t)bs >> 16);
+    const int lo = (int)((uint32_t)bs & 0xFFFFu);
     o[0] = best;
-    o[1] = bs >> 16;
-    o[2] = bs & 0xFFFF;
+    o[1] = kStats ? lo : hi;
+    o[2] = kStats ? hi : lo;
     o[3] = qsel;
     o[4] = qsel + kmin;
     o[5] = 0;
@@ -348,6 +350,70 @@ __device__ __forceinline__ int coded_rows(const int8_t* __restrict__ q,
   for (int off = G / 2; off > 0; off >>= 1)
     last = max(last, __shfl_xor_sync(kFull, last, off, G));
   return last + 1;
+}
+
+
+// One problem group of a pre-gathered entry (K4, A1, G1): problem p's
+// windows are q[p] (M bytes) and t[p] (M + G * C bytes). Where `skip`
+// holds, the warp runs up to its problems' last read code other than 4
+// (coded_rows), rounded up to C; otherwise every one of the M rows.
+template <int G, int C, bool kWide, bool kStats, bool kRowEnd>
+__device__ __forceinline__ void gathered_entry(const int8_t* __restrict__ q,
+                                               const int8_t* __restrict__ t,
+                                               int32_t* __restrict__ out,
+                                               int P, int M, bool skip,
+                                               int match, int mismatch,
+                                               int oe, int ext) {
+  constexpr int B = C * G;
+  constexpr int kGroups = 32 / G;  // problems per warp
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % G;  // lane within the problem's group
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (warp * kGroups >= P) return;
+  const int p = warp * kGroups + lane / G;
+  const bool live = p < P;  // a dead group still takes part in shuffles
+  const int8_t* qp = q + (size_t)p * M;
+  const bool vec = M % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
+  const int own_rows = skip ? coded_rows<G>(qp, M, vec, live, gl) : M;
+  const Gathered src{qp, t + (size_t)p * (M + B), live ? own_rows : 0,
+                     live && own_rows > 0 ? own_rows + B : 0};
+  dp_body<G, C, kWide, kStats, kRowEnd>(src, warp_rows<C>(own_rows, M, skip),
+                                        gl, live, match, mismatch, oe, ext,
+                                        out + 8 * (size_t)p);
+}
+
+
+// Blocks for P problems of a build with G lanes per problem.
+template <int G>
+dim3 grid_for(int P) {
+  constexpr int kPerBlock = kWarpsPerBlock * (32 / G);
+  return dim3((P + kPerBlock - 1) / kPerBlock);
+}
+
+
+// Calls launch(G, C, kWide), each an integral constant, with the
+// pre-gathered build of A1 and G1 for the band (K4's layouts, 16 and 32
+// lanes x 8 cells, at 128 and 256; 32 lanes x 16 cells at 512) and the
+// scores, and returns the launch's CUDA error. The row count must be a
+// multiple of the build's cells per lane.
+template <class Launch>
+int for_banded_build(int band, int rows, bool wide, Launch launch) {
+  using C8 = std::integral_constant<int, kCells>;
+  using C16 = std::integral_constant<int, 2 * kCells>;
+  using G16 = std::integral_constant<int, 16>;
+  using G32 = std::integral_constant<int, 32>;
+  const auto with = [&](auto g, auto c) {
+    if (rows % decltype(c)::value != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    wide ? launch(g, c, std::true_type{}) : launch(g, c, std::false_type{});
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (band) {
+    case 128: return with(G16{}, C8{});
+    case 256: return with(G32{}, C8{});
+    case 512: return with(G32{}, C16{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 

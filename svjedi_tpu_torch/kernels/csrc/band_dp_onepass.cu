@@ -112,10 +112,9 @@ band_dp_dma_kernel(const int8_t* __restrict__ reads, long long n_reads,
                  live ? (long long)t_start[p] : 0LL,
                  live ? max((long long)t_lo[p], 0LL) : 0LL,
                  live ? min((long long)t_hi[p], n_panel) : 0LL};
-  dp_body<G, kCells, kWide, false>(src, warp_rows<kCells>(own_rows, bucket,
-                                                          skip),
-                                    gl, live, match, mismatch, oe, ext,
-                                    out + 8 * (size_t)p);
+  dp_body<G, kCells, kWide, false, false>(
+      src, warp_rows<kCells>(own_rows, bucket, skip), gl, live, match,
+      mismatch, oe, ext, out + 8 * (size_t)p);
 }
 
 // K4: pre-gathered windows q (P, M) and t (P, M + band).
@@ -125,22 +124,8 @@ band_dp_onepass_kernel(const int8_t* __restrict__ q,
                        const int8_t* __restrict__ t,
                        int32_t* __restrict__ out, int P, int M, bool skip,
                        int match, int mismatch, int oe, int ext) {
-  constexpr int B = kCells * G;
-  constexpr int kGroups = 32 / G;  // problems per warp
-  const int lane = threadIdx.x & 31;
-  const int gl = lane % G;  // lane within the problem's group
-  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp * kGroups >= P) return;
-  const int p = warp * kGroups + lane / G;
-  const bool live = p < P;  // a dead group still takes part in shuffles
-  const int8_t* qp = q + (size_t)p * M;
-  const bool vec = M % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  const int own_rows = skip ? coded_rows<G>(qp, M, vec, live, gl) : M;
-  const Gathered src{qp, t + (size_t)p * (M + B), live ? own_rows : 0,
-                     live && own_rows > 0 ? own_rows + B : 0};
-  dp_body<G, kCells, kWide, false>(src, warp_rows<kCells>(own_rows, M, skip),
-                                    gl, live, match, mismatch, oe, ext,
-                                    out + 8 * (size_t)p);
+  gathered_entry<G, kCells, kWide, false, false>(q, t, out, P, M, skip, match,
+                                                 mismatch, oe, ext);
 }
 
 // Calls launch(G, kWide) with the build for the band and the scores, and
@@ -157,13 +142,6 @@ int for_build(int band, int rows, bool wide, Launch launch) {
   else if (band == 256) wide ? launch(N32{}, Wide{}) : launch(N32{}, Narrow{});
   else return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Problems per block of a build, and the blocks for P problems.
-template <int G>
-dim3 grid_for(int P) {
-  constexpr int kPerBlock = kWarpsPerBlock * (32 / G);
-  return dim3((P + kPerBlock - 1) / kPerBlock);
 }
 
 }  // namespace

@@ -12,14 +12,16 @@
 // horizontal gap must be strictly better, and among tied horizontal sources
 // the nearest wins. What rides along is (n_diag << 16 | matches): 0 at the
 // start and at a reset, plus (1 << 16) + is_match on a diagonal step. The
-// end is K1's rule, not K3/K4's: the first row whose maximum strictly beats
+// end is band_dp_batch's row rule, not K1/K3/K4's per-cell rule: the first
+// row whose maximum strictly beats
 // the best so far, and in that row the lowest band offset. Output per
 // problem: 8 int32 [score, matches, n_diag, qe, te, 0, 0, 0]; a problem
 // scoring 0 writes [0, 0, 0, -1, -1, 0, 0, 0].
 //
-// The design: K4's entry (pre-gathered windows, the row scan that finds
-// each problem's last non-sentinel row) on dp_body (band_dp_body.cuh) with
-// kStats set, which changes the rider and the final reduction only. Bands
+// The design: K4's entry (gathered_entry: pre-gathered windows, the row
+// scan that finds each problem's last non-sentinel row) on dp_body
+// (band_dp_body.cuh) with kStats (the rider) and kRowEnd (the row rule)
+// set. Bands
 // 128 and 256 take K4's layouts (16 and 32 lanes x 8 cells); band 512, the
 // audit's band when cfg.band is 256, takes 32 lanes x 16 cells, so rows
 // run in multiples of 16 there. Rows: where rows_skip_exact holds, a warp
@@ -46,52 +48,8 @@ band_dp_stats_kernel(const int8_t* __restrict__ q,
                      const int8_t* __restrict__ t, int32_t* __restrict__ out,
                      int P, int M, bool skip, int match, int mismatch, int oe,
                      int ext) {
-  constexpr int B = C * G;
-  constexpr int kGroups = 32 / G;  // problems per warp
-  const int lane = threadIdx.x & 31;
-  const int gl = lane % G;  // lane within the problem's group
-  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp * kGroups >= P) return;
-  const int p = warp * kGroups + lane / G;
-  const bool live = p < P;  // a dead group still takes part in shuffles
-  const int8_t* qp = q + (size_t)p * M;
-  const bool vec = M % 16 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-  const int own_rows = skip ? coded_rows<G>(qp, M, vec, live, gl) : M;
-  const Gathered src{qp, t + (size_t)p * (M + B), live ? own_rows : 0,
-                     live && own_rows > 0 ? own_rows + B : 0};
-  dp_body<G, C, kWide, true>(src, warp_rows<C>(own_rows, M, skip), gl, live,
-                             match, mismatch, oe, ext, out + 8 * (size_t)p);
-}
-
-template <int G, int C, bool kWide>
-int launch(const int8_t* q, const int8_t* t, int32_t* out, int P, int M,
-           bool skip, int match, int mismatch, int oe, int ext,
-           cudaStream_t s) {
-  if (M % C != 0) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kPerBlock = kWarpsPerBlock * (32 / G);
-  band_dp_stats_kernel<G, C, kWide>
-      <<<(P + kPerBlock - 1) / kPerBlock, 32 * kWarpsPerBlock, 0, s>>>(
-          q, t, out, P, M, skip, match, mismatch, oe, ext);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kWide>
-int launch_band(int band, const int8_t* q, const int8_t* t, int32_t* out,
-                int P, int M, bool skip, int match, int mismatch, int oe,
-                int ext, cudaStream_t s) {
-  switch (band) {
-    case 128:
-      return launch<16, kCells, kWide>(q, t, out, P, M, skip, match, mismatch,
-                                       oe, ext, s);
-    case 256:
-      return launch<32, kCells, kWide>(q, t, out, P, M, skip, match, mismatch,
-                                       oe, ext, s);
-    case 512:
-      return launch<32, 2 * kCells, kWide>(q, t, out, P, M, skip, match,
-                                           mismatch, oe, ext, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  gathered_entry<G, C, kWide, true, true>(q, t, out, P, M, skip, match,
+                                          mismatch, oe, ext);
 }
 
 }  // namespace
@@ -110,9 +68,12 @@ extern "C" int band_dp_stats_launch(const void* q, const void* t, void* out,
   int32_t* o = static_cast<int32_t*>(out);
   const bool skip = rows_skip_exact(mismatch, oe, ext);
   // The narrow build's packed (score, row) key holds rows below 2^15.
-  return wide_build(match, mismatch, oe, ext, M, band) || M >= (1 << 15)
-             ? launch_band<true>(band, qq, tt, o, P, M, skip, match, mismatch,
-                                 oe, ext, s)
-             : launch_band<false>(band, qq, tt, o, P, M, skip, match,
-                                  mismatch, oe, ext, s);
+  const bool wide =
+      wide_build(match, mismatch, oe, ext, M, band) || M >= (1 << 15);
+  return for_banded_build(band, M, wide, [&](auto g, auto c, auto w) {
+    constexpr int G = decltype(g)::value;
+    band_dp_stats_kernel<G, decltype(c)::value, decltype(w)::value>
+        <<<grid_for<G>(P), 32 * kWarpsPerBlock, 0, s>>>(
+            qq, tt, o, P, M, skip, match, mismatch, oe, ext);
+  });
 }

@@ -49,7 +49,9 @@ from .utils.native import load_native
 from .utils.stats import RunStats
 from .align.pipeline import align_and_count, resolve_engine, use_device_scan
 from .dist.mesh import local_devices, make_mesh
-from .kernels import band_dp_dma, band_dp_stats, band_dp_v3, dev_scan
+from .kernels import (
+    band_dp_dma, band_dp_gather, band_dp_stats, band_dp_v3, dev_scan,
+)
 
 
 def select_device() -> torch.device:
@@ -284,6 +286,7 @@ def run_pipeline(
     launches0 = band_dp_v3.launches
     rev_launches0 = band_dp_v3.rev_launches
     dma_launches0 = band_dp_dma.launches
+    gather_launches0 = band_dp_gather.launches
     stats_launches0 = band_dp_stats.launches
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -317,6 +320,8 @@ def run_pipeline(
     stats.set("band_dp_v3_launches", band_dp_v3.launches - launches0)
     stats.set("band_dp_v3_rev_launches", band_dp_v3.rev_launches - rev_launches0)
     stats.set("band_dp_dma_launches", band_dp_dma.launches - dma_launches0)
+    stats.set("band_dp_gather_launches",
+              band_dp_gather.launches - gather_launches0)
     stats.set("band_dp_stats_launches",
               band_dp_stats.launches - stats_launches0)
     # The audit re-score's split: the host's piece assembly and the stats

@@ -4,7 +4,7 @@
 plain version ``kernels/band_dp_stats.py:band_dp_stats_ref``) must equal
 ``svjedi_tpu.align.extend.band_dp_stats_batch`` (XLA on the CPU) exactly on
 all five outputs: at the audit's bands (256, and 512 for ``cfg.band`` 256)
-and buckets, on ragged pieces, tied maxima, inputs where K1's (score, row)
+and buckets, on ragged pieces, tied maxima, inputs where the (score, row)
 end rule and the one-pass kernels' per-cell rule part, and scores at which
 every row must run. A numpy model of the kernel's row skip, and
 ``compute_winner_stats`` with whole-bucket batches, are held to JAX too.
@@ -72,7 +72,7 @@ def _pieces(seed: int, P: int, M: int, band: int):
 
 
 def _two_local_alignments(M: int, band: int):
-    """One problem where K1's end rule and the per-cell rule part: two
+    """One problem where the row end rule and the per-cell rule part: two
     separate local alignments of equal score, the first ending at an early
     row on a high band offset, the second at a later row on a low one (the
     gap between their diagonals costs more than either scores)."""

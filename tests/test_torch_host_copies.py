@@ -64,6 +64,7 @@ def test_host_module_copy_is_verbatim(rel):
 #: Functions copied verbatim into a module of the port, by module.
 FUNCTIONS = {
     "dist/engine.py": ("packed_buffers", "assert_no_group_straddle"),
+    "align/extend.py": ("smith_waterman_full",),
 }
 #: Regions copied verbatim: (module, first line, last function).
 REGIONS = (("dist/count_merge.py", "_BIG = ", "_segment_np"),)
