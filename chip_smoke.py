@@ -132,10 +132,36 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    the script would pass 1,000 s; then on a 1 Mb / 100 SV / 20x bundle
    with its own single run.
 
+8. Every ``run`` mode not run on the card before, in this process through
+   ``run_pipeline`` on cuda:0 against phase 3's run (its VCF and its
+   audit table): ``--no-stream --no-artifacts`` (no read stream, no
+   intermediate file), ``--shard 0/2`` and ``--shard 1/2 --decoy-shards
+   2`` (``decoy_shards`` 2 in its stats) merged by ``python -m
+   svjedi_tpu_torch merge -n 2``, ``--resume`` on a copy of phase 3's
+   audit table (``resumed_from`` in its stats, no kernel launched) and
+   ``--profile-dir`` (``trace.json`` written). Each VCF must equal phase
+   3's byte for byte at accuracy 100.0 (on the 1 Mb bundle below, its
+   single run's VCF at that run's accuracy); each run that aligns must launch
+   K1, K1', A1 and D1 (one launch per chunk), load the port's native
+   library and print no fault or audit warning. Each prints its align
+   stage, wall time and peak device memory. From the trace: the device's
+   busy share of the align stage (the union of its kernel, memcpy and
+   memset intervals over the profiled window), the five kernels and the
+   five longest idle gaps by time; the trace must hold CUDA kernel events,
+   K1's, K1''s, D1's and A1's among them. On the 1 Mb bundle of phase 7
+   (with its own single run) unless phase 3's wall time says the script
+   would pass 1,000 s.
+9. The port's ``python -m svjedi_tpu_torch.bench_scaling`` tool
+   (``bench_scaling.measure``) on phase 3's bundle on cuda:0: its JSON
+   line is printed with the JAX tool's keys, its problem count is a
+   positive multiple of 1,024, K1 and K1' are launched, the one-device and
+   the 1 x 1 sharded ``v3`` steps' counts are equal and positive, and the
+   sharding overhead is finite.
+
 Every phase prints its seconds. The kernels' launches in the JSON record
 are those of one path's run each: phase 3 (`run`) for K1, K1', D1 and A1,
-phase 4 for K3, phase 2c for K4, phase 4b for G1; a log line gives the
-other paths'.
+phase 4 for K3, phase 2c for K4, phase 4b for G1; log lines give the
+other paths', phases 8 and 9 included.
 
 Everything runs through ``svjedi_tpu_torch``; nothing of JAX or of the JAX
 package is imported. The second-to-last line is the kernels' JSON record;
@@ -1960,22 +1986,22 @@ def phase_multihost(out: Path, paths, single_vcf: Path, mb: int,
     return stats_launches
 
 
-def phase_multihost_any(out: Path, paths, v3_prefix: Path, t_start: float,
-                        phase3_wall: float):
-    """Phase 7 on the 10 Mb bundle if the script's clock allows, else on a
-    1 Mb bundle beside its own single-process run."""
-    budget = 1000.0
-    # Two processes on one card and 8 cores: allow twice phase 3's wall.
-    if time.perf_counter() - t_start + 2 * phase3_wall < budget:
-        return phase_multihost(out, paths, Path(f"{v3_prefix}_genotype.vcf"),
-                               10)
+#: The script's clock limit for the 10 Mb bundle in phases 7 and 8: past
+#: it they run on a 1 Mb bundle (``small_bundle``).
+BUDGET_S = 1000.0
+
+
+@functools.lru_cache(maxsize=None)
+def small_bundle(out: Path):
+    """A 1 Mb / 100 SV / 20x bundle and its single-process ``run`` (the
+    reference of phases 7 and 8 when the 10 Mb bundle would not fit the
+    clock); returns its paths and the run's prefix."""
     small = out / "small"
     small.mkdir()
-    spaths, n_reads = simulate_bundle(small, 1, 100, 20.0)
+    spaths, _ = simulate_bundle(small, 1, 100, 20.0)
     cmd = [sys.executable, "-m", "svjedi_tpu_torch", "run",
            "-v", str(spaths["vcf"]), "-r", str(spaths["ref"]),
-           "-q", str(spaths["reads"]), "-p", str(small / "single"),
-           "--no-artifacts"]
+           "-q", str(spaths["reads"]), "-p", str(small / "single")]
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True,
@@ -1983,7 +2009,340 @@ def phase_multihost_any(out: Path, paths, v3_prefix: Path, t_start: float,
     if proc.returncode != 0:
         fail(f"the 1 Mb single-process run exited {proc.returncode}: "
              f"{proc.stderr[-500:]}")
-    return phase_multihost(small, spaths, small / "single_genotype.vcf", 1)
+    return spaths, small / "single"
+
+
+def phase_multihost_any(out: Path, paths, v3_prefix: Path, t_start: float,
+                        phase3_wall: float):
+    """Phase 7 on the 10 Mb bundle if the script's clock allows, else on a
+    1 Mb bundle beside its own single-process run."""
+    # Two processes on one card and 8 cores: allow twice phase 3's wall.
+    if time.perf_counter() - t_start + 2 * phase3_wall < BUDGET_S:
+        return phase_multihost(out, paths, Path(f"{v3_prefix}_genotype.vcf"),
+                               10)
+    spaths, single = small_bundle(out)
+    return phase_multihost(out / "small", spaths,
+                           Path(f"{single}_genotype.vcf"), 1)
+
+
+# ---- phase 8 ------------------------------------------------------------------
+
+
+#: The kernels of `run`'s path, whose launches phase 8 gates.
+RUN_KERNELS = ("K1", "K1'", "D1", "A1")
+
+
+def reset_run_launches() -> None:
+    from svjedi_tpu_torch.kernels import band_dp_stats, band_dp_v3, dev_scan
+
+    band_dp_v3.launches = band_dp_v3.rev_launches = 0
+    dev_scan.launches = band_dp_stats.launches = 0
+
+
+def run_launches() -> dict:
+    """Launches of `run`'s kernels since ``reset_run_launches``."""
+    from svjedi_tpu_torch.kernels import band_dp_stats, band_dp_v3, dev_scan
+
+    rev = band_dp_v3.rev_launches
+    return {"K1": band_dp_v3.launches - rev, "K1'": rev,
+            "D1": dev_scan.launches, "A1": band_dp_stats.launches}
+
+
+def accuracy_of(truth_vcf, vcf):
+    """The genotyping accuracy of ``vcf`` against the truth, and the
+    contingency report on one line."""
+    from svjedi_tpu_torch.evals.contingency import contingency_report
+
+    report = contingency_report(str(truth_vcf), str(vcf))
+    acc = re.search(r"accuracy: ([\d.]+)", report)
+    return (float(acc.group(1)) if acc else None,
+            " | ".join(report.strip().splitlines()))
+
+
+def mode_run(label: str, paths, prefix: Path, aligns: bool = True, **cfg_kw):
+    """One ``run_pipeline`` call of phase 8 on cuda:0 in this process, with
+    ``PipelineConfig(**cfg_kw)``. A run that aligns must launch K1, K1', D1
+    (one launch per chunk) and A1 and load the port's native library; one
+    that does not (``--resume``) must launch none of them. No fault or
+    audit warning may appear. Returns its stats counters and timings, the
+    launches and the call's wall seconds."""
+    import contextlib
+    import io
+
+    import torch
+
+    from svjedi_tpu_torch.config import PipelineConfig
+    from svjedi_tpu_torch.pipeline import run_pipeline
+
+    cfg = PipelineConfig(vcf=paths["vcf"], ref=paths["ref"],
+                         reads=(str(paths["reads"]),), prefix=str(prefix),
+                         **cfg_kw)
+    err = io.StringIO()
+    reset_run_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        run_pipeline(cfg, device=torch.device("cuda:0"))
+    wall = time.perf_counter() - t0
+    launches = run_launches()
+    stderr = err.getvalue()
+    warned = [w for w in (*FAULT_WARNINGS, AUDIT_WARNING) if w in stderr]
+    if warned:
+        for line in stderr.splitlines()[-8:]:
+            log(f"[modes] {label} stderr: {line}")
+        fail(f"warnings in the {label} run: {warned}")
+    stats_path = (f"{prefix}.shard{cfg.shard[0]}of{cfg.shard[1]}_stats.json"
+                  if cfg.shard else f"{prefix}_stats.json")
+    with open(stats_path) as fh:
+        stats = json.load(fh)
+    counters, timings = stats["counters"], stats["timings_s"]
+    if aligns:
+        missing = [k for k in RUN_KERNELS if launches[k] <= 0]
+        if missing:
+            fail(f"the {label} run launched {missing} no time: {launches}")
+        check_native(counters, f"the {label} run")
+        check_device_scan(counters, int(counters["n_reads"]),
+                          f"the {label} run")
+        if counters.get("band_dp_stats_launches") != launches["A1"]:
+            fail(f"the {label} run recorded "
+                 f"{counters.get('band_dp_stats_launches')} A1 launches, "
+                 f"not {launches['A1']}")
+    elif any(launches.values()):
+        fail(f"the {label} run launched kernels: {launches}")
+    align = (f"align stage {float(timings['align']):.2f} s "
+             f"({counters.get('n_reads')} reads)" if aligns else "no align")
+    log(f"[modes] {label}: run wall {wall:.1f} s; {align}; "
+        f"max_memory_allocated {counters.get('device_max_memory_allocated')} "
+        f"bytes; launches " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + (f"; {audit_split(counters, launches['A1'])}" if aligns else ""))
+    return counters, timings, launches, wall
+
+
+def kernel_of(name: str):
+    """Which of `run`'s kernels a trace's kernel event is (demangled or
+    mangled name), or None; K1' is the kRev build of band_dp_v3_kernel."""
+    if "dev_scan_kernel" in name:
+        return "D1"
+    if "band_dp_stats_kernel" in name:
+        return "A1"
+    if "band_dp_v3_kernel" in name:
+        args = re.search(r"band_dp_v3_kernel<([^>]*)>", name)
+        if args:
+            rev = args.group(1).split(",")[-1].strip() == "true"
+        else:
+            rev = re.search(r"band_dp_v3_kernelI.*?Lb([01])EE", name)
+            rev = rev is not None and rev.group(1) == "1"
+        return "K1'" if rev else "K1"
+    return None
+
+
+def device_busy(trace_path: Path) -> dict:
+    """From a torch.profiler trace: the union of the device's kernel, memcpy
+    and memset intervals over the profiled window (the span of all the
+    trace's events), the kernels by total time and the longest idle gaps.
+    Fails if the trace holds no kernel event (no CUDA tracing) or misses
+    one of `run`'s kernels."""
+    with open(trace_path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    gpu = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = [e for e in gpu if e["cat"] == "kernel"]
+    if not kernels:
+        fail(f"the profiler trace holds no CUDA kernel event ({len(events)} "
+             f"events): torch.profiler did not trace the card")
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    merged = []
+    for s, e in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in gpu):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    busy = sum(e - s for s, e in merged)
+    edges = [t0] + [x for span in merged for x in span] + [t1]
+    gaps = sorted(((edges[2 * i + 1] - edges[2 * i], edges[2 * i] - t0)
+                   for i in range(len(merged) + 1)), reverse=True)
+    by_name: dict = {}
+    for e in kernels:
+        tot, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (tot + float(e["dur"]), n + 1)
+    found = {kernel_of(name) for name in by_name} - {None}
+    if found != set(RUN_KERNELS):
+        fail(f"the trace's kernels miss {set(RUN_KERNELS) - found}: "
+             f"{sorted(by_name)[:12]}")
+    return {"window_us": t1 - t0, "busy_us": busy, "n_events": len(events),
+            "n_gpu": len(gpu), "top": sorted(by_name.items(),
+                                             key=lambda kv: -kv[1][0])[:5],
+            "gaps": gaps[:5],
+            "names": {kernel_of(n): n for n in by_name if kernel_of(n)}}
+
+
+def phase_modes(out: Path, paths, ref_prefix: Path, want_acc: float):
+    """Phase 8: every `run` mode not run on the card before, against the
+    reference run at ``ref_prefix``, each at accuracy ``want_acc``; returns
+    each mode's launches."""
+    import shutil
+
+    from svjedi_tpu_torch.config import DistConfig
+
+    ref_vcf = Path(f"{ref_prefix}_genotype.vcf").read_bytes()
+    modes = {}
+
+    def same_vcf(prefix: Path, label: str):
+        vcf = Path(f"{prefix}_genotype.vcf")
+        if vcf.read_bytes() != ref_vcf:
+            fail(f"the {label} VCF differs from the reference run's")
+        acc, report = accuracy_of(paths["vcf"], vcf)
+        if acc != want_acc:
+            fail(f"the {label} run's genotyping accuracy is {acc}, not "
+                 f"{want_acc}")
+        log(f"[modes] {label}: VCF byte-equal to the reference run's; "
+            + report)
+
+    # Eager loading, no intermediate files.
+    label = "--no-stream --no-artifacts"
+    prefix = out / "eager"
+    counters, timings, modes[label], wall = mode_run(
+        label, paths, prefix, stream_reads=False, keep_artifacts=False)
+    eager_untimed = wall - sum(float(v) for v in timings.values())
+    if counters.get("read_loader") == "stream":
+        fail(f"the {label} run streamed its reads")
+    written = [s for s in ("_informative_aln.json", ".gfa", "_svs_edges.json",
+                           "_ignored_svs.txt")
+               if Path(f"{prefix}{s}").exists()]
+    if written:
+        fail(f"the {label} run wrote {written}")
+    same_vcf(prefix, label)
+
+    # Two shards (the second with two decoy shards), then the host merge.
+    prefix = out / "sharded"
+    shard_counters = []
+    for i, extra in ((0, {}), (1, {"dist": DistConfig(decoy_shards=2)})):
+        label = f"--shard {i}/2" + (" --decoy-shards 2" if extra else "")
+        counters, _, modes[label], _ = mode_run(label, paths, prefix,
+                                                shard=(i, 2), **extra)
+        if counters.get("shard") != f"{i}/2":
+            fail(f"the {label} run recorded shard {counters.get('shard')!r}")
+        shard_counters.append(counters)
+    if shard_counters[1].get("decoy_shards") != 2:
+        fail(f"--shard 1/2 --decoy-shards 2 recorded decoy_shards "
+             f"{shard_counters[1].get('decoy_shards')!r}")
+    cmd = [sys.executable, "-m", "svjedi_tpu_torch", "merge",
+           "-v", str(paths["vcf"]), "-p", str(prefix), "-n", "2"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"merge exited {proc.returncode}: {proc.stderr[-500:]}")
+    log(f"[modes] merge -n 2: {time.perf_counter() - t0:.1f} s; shards' "
+        f"reads {shard_counters[0].get('n_reads')} and "
+        f"{shard_counters[1].get('n_reads')}")
+    same_vcf(prefix, "--shard 0/2, --shard 1/2 --decoy-shards 2, merge")
+
+    # Resume from a copy of the reference run's audit table.
+    label = "--resume"
+    prefix = out / "resumed"
+    shutil.copy(f"{ref_prefix}_informative_aln.json",
+                f"{prefix}_informative_aln.json")
+    counters, _, modes[label], _ = mode_run(label, paths, prefix,
+                                            aligns=False, resume=True)
+    if "resumed_from" not in counters:
+        fail("the --resume run did not resume")
+    same_vcf(prefix, label)
+
+    # torch.profiler around the align stage.
+    label = "--profile-dir"
+    prefix = out / "profiled"
+    trace = out / "profile" / "trace.json"
+    counters, timings, modes[label], wall = mode_run(
+        label, paths, prefix, profile_dir=str(trace.parent))
+    untimed = wall - sum(float(v) for v in timings.values())
+    if not trace.exists():
+        fail("the --profile-dir run wrote no trace.json")
+    t0 = time.perf_counter()
+    busy = device_busy(trace)
+    share = busy["busy_us"] / busy["window_us"]
+    log(f"[profile] trace {trace.stat().st_size} bytes, {busy['n_events']} "
+        f"events ({busy['n_gpu']} on the device), read in "
+        f"{time.perf_counter() - t0:.1f} s; the run's seconds outside its "
+        f"timed stages {untimed:.1f} (trace export included; the eager "
+        f"run's {eager_untimed:.1f})")
+    log(f"[profile] device busy share of the align stage: {100 * share:.2f}% "
+        f"({busy['busy_us'] / 1e3:.1f} ms of a {busy['window_us'] / 1e3:.1f} "
+        f"ms profiled window; align stage {float(timings['align']):.2f} s); "
+        f"idle {100 * (1 - share):.2f}%")
+    for name, (tot, n) in busy["top"]:
+        log(f"[profile] kernel {tot / 1e3:9.3f} ms, {n:5d} launches: "
+            f"{name[:100]}")
+    for length, at in busy["gaps"]:
+        log(f"[profile] idle gap {length / 1e3:9.3f} ms at "
+            f"{at / 1e3:.1f} ms")
+    log("[profile] run kernels in the trace: " + "; ".join(
+        f"{k} = {n[:60]}" for k, n in sorted(busy["names"].items())))
+    same_vcf(prefix, label)
+    return modes
+
+
+def phase_modes_any(out: Path, paths, v3_prefix: Path, t_start: float,
+                    phase3_wall: float):
+    """Phase 8 on the 10 Mb bundle if the script's clock allows, else on the
+    1 Mb bundle of ``small_bundle``. The 10 Mb runs must reach accuracy
+    100.0, as phase 3 does; the 1 Mb runs the accuracy of their single
+    run (99.0 on the card: one false positive)."""
+    # Five in-process runs and a merge, then phase 9: about four of phase
+    # 3's walls (3.4 and 0.2 on an H100).
+    if time.perf_counter() - t_start + 4 * phase3_wall < BUDGET_S:
+        return phase_modes(out, paths, v3_prefix, 100.0)
+    spaths, single = small_bundle(out)
+    acc, report = accuracy_of(spaths["vcf"], f"{single}_genotype.vcf")
+    log(f"[modes] on the 1 Mb bundle (the 10 Mb runs would pass the clock); "
+        f"its single run: {report}")
+    if acc is None:
+        fail("the 1 Mb single run's report has no accuracy")
+    return phase_modes(out / "small", spaths, single, acc)
+
+
+# ---- phase 9 ------------------------------------------------------------------
+
+
+def phase_scaling(paths):
+    """Phase 9: ``bench_scaling.measure`` on phase 3's bundle on cuda:0;
+    returns its K1 and K1' launches."""
+    import torch
+
+    from svjedi_tpu_torch import bench_scaling
+
+    t0 = time.perf_counter()
+    res = bench_scaling.measure(paths["ref"], paths["vcf"], paths["reads"],
+                                torch.device("cuda:0"))
+    log(f"[scaling] {json.dumps(res.line)}")
+    line = res.line
+    if list(line) != list(bench_scaling.KEYS):
+        fail(f"the tool's line has keys {list(line)}")
+    if (line["platform"], line["engine"]) != ("cuda", "v3"):
+        fail(f"the tool ran {line['engine']} on {line['platform']}")
+    P = line["n_problems"]
+    if P <= 0 or P % 1024:
+        fail(f"the tool's n_problems {P} is not a positive multiple of 1024")
+    if res.k1_launches <= 0 or res.k1_rev_launches <= 0:
+        fail(f"the tool launched K1 {res.k1_launches} and K1' "
+             f"{res.k1_rev_launches} times")
+    if not np.array_equal(res.single_counts, res.sharded_counts):
+        n_bad = int((res.single_counts != res.sharded_counts).sum())
+        fail(f"the one-device and the 1 x 1 sharded step's counts differ in "
+             f"{n_bad} entries")
+    if int(res.single_counts.sum()) <= 0:
+        fail("the tool's steps counted no support")
+    if not np.isfinite(line["sharding_overhead_x"]):
+        fail(f"sharding_overhead_x is {line['sharding_overhead_x']}")
+    log(f"[scaling] {P} problems of bucket 2048; one-device and 1 x 1 "
+        f"sharded step counts exact, sum {int(res.single_counts.sum())}; K1 "
+        f"launches {res.k1_launches}, K1' {res.k1_rev_launches}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return res.k1_launches, res.k1_rev_launches
 
 
 def main() -> int:
@@ -2038,6 +2397,11 @@ def main() -> int:
                                          paths, v3_prefix)
         stats7 = timed("7", phase_multihost_any, Path(tmp), paths, v3_prefix,
                        t_start, phase3_wall)
+        torch.cuda.empty_cache()
+        modes = timed("8", phase_modes_any, Path(tmp), paths, v3_prefix,
+                      t_start, phase3_wall)
+        torch.cuda.empty_cache()
+        scaling_fwd, scaling_rev = timed("9", phase_scaling, paths)
 
     # Each kernel's launches in the JSON line are those of its own path's
     # run (K1, K1', D1 and A1: phase 3, `run`; K3: phase 4; K4: phase 2c;
@@ -2048,6 +2412,11 @@ def main() -> int:
         f"{run_rev}; A1 dma path {stats4}, gather path {stats4b}, "
         f"--data-shards/--graph-shards run {stats6}, --multihost {stats7}; "
         f"G1 xla count step {step_g1}")
+    log("[kernels] launches of phase 8's modes: " + "; ".join(
+        f"{mode}: " + ", ".join(f"{k} {n}" for k, n in launches.items())
+        for mode, launches in modes.items()))
+    log(f"[kernels] launches of phase 9 (bench_scaling, both steps): K1 "
+        f"{scaling_fwd}, K1' {scaling_rev}")
     source = "svjedi_tpu_torch/kernels/csrc/band_dp_onepass.cu"
     v3_source = "svjedi_tpu_torch/kernels/csrc/band_dp_v3.cu"
     print(json.dumps({"kernels": [{

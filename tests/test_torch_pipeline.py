@@ -2,10 +2,11 @@
 
 On the CPU (``--device cpu``) both packages score with the one-pass
 ``gather`` engine, so the GAF, the audit table and the genotype VCF must be
-byte-identical on a simulated bundle; the port's shard + merge mode must
-reproduce its single run; the port must import and run with JAX and the JAX
-package absent; and without ``--device cpu`` it must refuse to run when no
-card is visible.
+byte-identical on a simulated bundle, also with ``--no-stream
+--no-artifacts``; the port's shard + merge mode, ``--resume`` and
+``--profile-dir`` must reproduce its single run; the port must import and
+run with JAX and the JAX package absent; and without ``--device cpu`` it
+must refuse to run when no card is visible.
 """
 
 import ast
@@ -150,15 +151,60 @@ def test_shard_merge_and_resume_match_single_run(bundle, single_runs):
     assert "resumed_from" in stats["counters"]
 
 
+def test_no_stream_no_artifacts_matches_jax(bundle, single_runs):
+    """``run --no-stream --no-artifacts``: the reads loaded resident and no
+    intermediate file written; both packages' VCFs byte-equal, and equal to
+    the streamed runs'."""
+    from svjedi_tpu.cli import main as jax_cli
+
+    tmp, paths = bundle
+    base = ["run", "-v", str(paths["vcf"]), "-r", str(paths["ref"]),
+            "-q", str(paths["reads"]), "--no-stream", "--no-artifacts"]
+    assert jax_cli([*base, "-p", str(tmp / "jax_eager")]) == 0
+    assert torch_cli([*base, "-p", str(tmp / "eager"), "--device", "cpu"]) == 0
+    ours = (tmp / "eager_genotype.vcf").read_bytes()
+    assert ours == (tmp / "jax_eager_genotype.vcf").read_bytes()
+    assert ours == (single_runs / "svjedi_tpu_genotype.vcf").read_bytes()
+    for suffix in ("_informative_aln.json", ".gfa", "_svs_edges.json"):
+        assert not (tmp / f"eager{suffix}").exists(), suffix
+    counters = json.loads((tmp / "eager_stats.json").read_text())["counters"]
+    assert counters.get("read_loader") != "stream"
+    assert counters["n_reads"] > 0
+
+
+def test_profile_dir_writes_a_trace(bundle, single_runs):
+    """``run --profile-dir``: the VCF of the run without it (and of the JAX
+    package, whose trace is its own profiler's format) and a torch.profiler
+    trace of the align stage. On the CPU the trace holds every op of the
+    plain DP (0.4 GB, ~3 GB of memory to write): a process of its own, and
+    the trace deleted once read."""
+    tmp, paths = bundle
+    trace = tmp / "profile" / "trace.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "svjedi_tpu_torch", "run",
+         "-v", str(paths["vcf"]), "-r", str(paths["ref"]),
+         "-q", str(paths["reads"]), "-p", str(tmp / "profiled"),
+         "--profile-dir", str(trace.parent), "--device", "cpu"],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(REPO_ROOT), OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp / "profiled_genotype.vcf").read_bytes() == \
+        (single_runs / "svjedi_tpu_genotype.vcf").read_bytes()
+    with trace.open() as fh:
+        assert '"traceEvents"' in fh.read(1 << 16)
+    trace.unlink()
+
+
 @pytest.mark.parametrize(
     "dist, multihost",
     [(DistConfig(data_shards=2), False), (DistConfig(graph_shards=2), False),
      (DistConfig(), True)],
 )
-def test_unported_modes_raise(dist, multihost, tmp_path, monkeypatch):
-    """``--data-shards``, ``--graph-shards`` and ``--multihost`` raised
-    NotImplementedError until the distribution layer was ported; now they
-    run as far as their input, and a missing reference raises."""
+def test_distribution_modes_reach_their_input(dist, multihost, tmp_path,
+                                             monkeypatch):
+    """``--data-shards``, ``--graph-shards`` and ``--multihost`` run as far
+    as their input: a missing reference raises."""
     from svjedi_tpu_torch.dist.multihost import ENV
     from svjedi_tpu_torch.pipeline import run_pipeline
 
@@ -241,7 +287,7 @@ dd = device.upload(codes, SimpleNamespace(paths=[]), torch.device("cpu"),
 bits = dev_scan.fetch_bitmask(dev_scan.dispatch_scan(dd, 15, 10))
 rid, _ = dev_scan.bitmask_positions(bits, np.array([0, 1000, 3000]))
 assert len(rid) > 100 and set(rid.tolist()) == {0, 1}, rid
-import svjedi_tpu_torch.bench
+import svjedi_tpu_torch.bench, svjedi_tpu_torch.bench_scaling
 loaded = [m for m in sys.modules if sys.modules[m] is not None]
 assert not any(m == "jax" or m.startswith("jax.") for m in loaded)
 assert not any(m == "svjedi_tpu" or m.startswith("svjedi_tpu.") for m in loaded)
