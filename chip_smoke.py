@@ -101,7 +101,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    K3 launches == 0 and A1 launches > 0; prints what phase 4 prints.
 5. Bench: ``SVJT_BENCH_CONFIG=scale python -m svjedi_tpu_torch.bench`` as
    a subprocess; it must exit 0 and print one JSON line with a positive
-   ``scale_reads_per_s_per_chip``; its stderr timings are printed.
+   ``scale_reads_per_s_per_chip``; its stderr timings are printed. With
+   ``SVJT_SCALE_MEMLOG`` set to a file, that file must hold the JAX bench's
+   header ``t_s rss_gb phase`` and the phase labels in its order (``sim``,
+   ``sim_reads``, ``graph``, ``panel``, ``index``, ``decoy``,
+   ``align_warm``, ``align_timed``, none after ``align_timed``), and the
+   ``[scale]`` line ``post_align_resident_gb``; each label's peak RSS is
+   printed.
 6. Distribution layer, in this process, at full width: the production
    problem (``svjedi_tpu_torch.entry.production_problem``) built from the
    first 16,384 reads of the 10 Mb bundle (bucket 2048, candidates with
@@ -157,11 +163,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    positive multiple of 1,024, K1 and K1' are launched, the one-device and
    the 1 x 1 sharded ``v3`` steps' counts are equal and positive, and the
    sharding overhead is finite.
+10. The seed profilers on phase 3's bundle on cuda:0:
+   ``profile_seed5.measure`` on the first 4,096 reads (``run``'s first
+   chunk) and on the first 16,384 (a full chunk), and
+   ``profile_seed.measure`` on all reads tiled once. Each profile's scan
+   iterations must launch D1 at least once each, its device-scan
+   candidates must equal its host-scan candidates array by array, and
+   every time must be finite and positive; the cold and warm splits, the
+   merged index's lazy builds, D1's own time, the chain's thread sweep and
+   the host-scan path are printed.
 
 Every phase prints its seconds. The kernels' launches in the JSON record
 are those of one path's run each: phase 3 (`run`) for K1, K1', D1 and A1,
 phase 4 for K3, phase 2c for K4, phase 4b for G1; log lines give the
-other paths', phases 8 and 9 included.
+other paths', phases 8, 9 and 10 included.
 
 Everything runs through ``svjedi_tpu_torch``; nothing of JAX or of the JAX
 package is imported. The second-to-last line is the kernels' JSON record;
@@ -1598,10 +1613,38 @@ def phase_gather_kernel(peak_ops: float):
 # ---- phase 5 ------------------------------------------------------------------
 
 
-def phase_bench(timeout: int = 900) -> float:
-    """The port's bench, scale configuration, as a user runs it."""
+def memlog_peaks(path: Path) -> dict:
+    """The bench's ``SVJT_SCALE_MEMLOG`` file checked against the JAX
+    bench's format and phase order; returns each label's peak rss_gb."""
+    from svjedi_tpu_torch.bench import MEMLOG_PHASES
+
+    lines = path.read_text().splitlines()
+    if not lines or lines[0] != "t_s\trss_gb\tphase":
+        fail(f"the bench's memlog header is {lines[:1]}")
+    rows = [ln.split("\t") for ln in lines[1:]]
+    if not rows or any(len(r) != 3 for r in rows):
+        fail(f"the bench's memlog has {len(rows)} rows, some malformed")
+    peaks: dict = {}
+    for _, rss, label in rows:
+        peaks[label] = max(peaks.get(label, 0.0), float(rss))
+    labels = [r[2] for r in rows]
+    order = [lab for i, lab in enumerate(labels)
+             if i == 0 or lab != labels[i - 1]]
+    if order[0] == "start":  # the sampler's first row may precede "sim"
+        order = order[1:]
+    if order != list(MEMLOG_PHASES[1:]):
+        fail(f"the bench's memlog labels run {order}, not "
+             f"{list(MEMLOG_PHASES[1:])}")
+    return peaks
+
+
+def phase_bench(out: Path, timeout: int = 900) -> float:
+    """The port's bench, scale configuration, as a user runs it, with its
+    phase-tagged memory profile."""
     cmd = [sys.executable, "-m", "svjedi_tpu_torch.bench"]
-    env = dict(os.environ, SVJT_BENCH_CONFIG="scale")
+    memlog = out / "bench_memlog.tsv"
+    env = dict(os.environ, SVJT_BENCH_CONFIG="scale",
+               SVJT_SCALE_MEMLOG=str(memlog))
     env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
     proc = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True,
                           text=True, timeout=timeout)
@@ -1621,6 +1664,12 @@ def phase_bench(timeout: int = 900) -> float:
             or not result.get("value", 0) > 0):
         fail(f"the bench's result is not a positive scale metric: {result}")
     log(f"[bench] {lines[0]}")
+    scale = [ln for ln in proc.stderr.splitlines() if ln.startswith("[scale]")]
+    if not scale or "post_align_resident_gb=" not in scale[0]:
+        fail("the bench's [scale] line lacks post_align_resident_gb")
+    peaks = memlog_peaks(memlog)
+    log("[bench] memlog peak rss_gb by phase: " + ", ".join(
+        f"{label} {gb:.2f}" for label, gb in peaks.items()))
     return float(result["value"])
 
 
@@ -2345,6 +2394,104 @@ def phase_scaling(paths):
     return res.k1_launches, res.k1_rev_launches
 
 
+# ---- phase 10 -----------------------------------------------------------------
+
+
+def _times(line: dict, prefix: str = ""):
+    """(key, value) of every float of a profile's line, nested or not."""
+    for key, val in line.items():
+        if isinstance(val, dict):
+            yield from _times(val, f"{prefix}{key}.")
+        elif isinstance(val, list):
+            for i, row in enumerate(val):
+                yield from _times(row, f"{prefix}{key}[{i}].")
+        elif isinstance(val, float):
+            yield prefix + key, val
+
+
+def check_times(line: dict, what: str) -> None:
+    bad = [(k, v) for k, v in _times(line) if not (np.isfinite(v) and v > 0)]
+    if bad:
+        fail(f"{what}: times not finite and positive: {bad}")
+
+
+def split_of(row: dict) -> str:
+    return ", ".join(
+        f"{k} {row[k] * 1e3:.3f} ms" for k in ("upload", "dispatch", "fetch",
+                                                "chain5", "suppress")
+    ) + f", D1 {row['d1_ms']:.3f} ms"
+
+
+def phase_seed_profile(paths, n_reads: int) -> int:
+    """Phase 10: the seed profilers on phase 3's bundle on cuda:0; returns
+    profile_seed5's D1 launches."""
+    import torch
+
+    from svjedi_tpu_torch import profile_seed, profile_seed5
+
+    dev = torch.device("cuda:0")
+    bundle = (paths["ref"], paths["vcf"], paths["reads"])
+    d1_launches = 0
+    for n in (4096, 16384):
+        t0 = time.perf_counter()
+        res = profile_seed5.measure(*bundle, dev, n_reads=n)
+        line = res.line
+        what = f"profile_seed5 on {n} reads"
+        log(f"[seed] {what}: {json.dumps(line)}")
+        iters = len(line["iters"])
+        if line["n_reads"] != min(n, n_reads) or line["device"] != str(dev):
+            fail(f"{what} profiled {line['n_reads']} reads on "
+                 f"{line['device']}")
+        if res.d1_launches < iters:
+            fail(f"{what} launched D1 {res.d1_launches} times in {iters} "
+                 f"scan iterations")
+        if not len(res.host_cands):
+            fail(f"{what} found no candidate")
+        diff = profile_seed5.differing_fields(res.device_cands,
+                                              res.host_cands)
+        if diff:
+            fail(f"{what}: device-scan candidates differ from the host "
+                 f"scan's in {diff}")
+        check_times(line, what)
+        log(f"[seed] {n} reads: cold {split_of(line['cold'])}; warm (best "
+            f"of {iters - 1}) {split_of(line['warm'])}; n_cands "
+            f"{line['cold']['n_cands']} = host scan's "
+            f"{line['n_cands_host_scan']}, all fields equal")
+        log(f"[seed] {n} reads: merge_indexes "
+            f"{line['merge_indexes_s'] * 1e3:.1f} ms, lazy builds: "
+            f"native_lookup {line['lookup_prebuild_s'] * 1e3:.1f} ms, "
+            f"hash_bitmap {line['bitmap_build_s'] * 1e3:.1f} ms, "
+            f"packed_hits {line['packed_hits_build_s'] * 1e3:.1f} ms; "
+            f"stream's first chunk {line['stream_first_chunk_s'] * 1e3:.1f}"
+            f" ms; chain5 by threads " + ", ".join(
+                f"{t} {line[f'chain5_threads_{t}'] * 1e3:.1f} ms"
+                for t in profile_seed5.THREADS)
+            + f"; host scan + chain {line['host_scan_chain'] * 1e3:.1f} ms;"
+            f" D1 launches {res.d1_launches}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        d1_launches += res.d1_launches
+    t0 = time.perf_counter()
+    res = profile_seed.measure(*bundle, dev, reps=1)
+    line = res.line
+    log(f"[seed] profile_seed: {json.dumps(line)}")
+    if line["reads"] != n_reads:
+        fail(f"profile_seed profiled {line['reads']} reads, not {n_reads}")
+    if not all(t["kept"] > 0 and t["blocks"] > 0 for t in line["trials"]) \
+            or not all(f["n_panel"] > 0 for f in line["full"]):
+        fail("profile_seed found no minimizer, block or panel candidate")
+    check_times(line, "profile_seed")
+    best = {k: min(t[k] for t in line["trials"])
+            for k in ("scan_bitmap", "chain2", "scan_raw")}
+    log(f"[seed] profile_seed, {n_reads} reads (best of 3): scan + bitmap "
+        f"{best['scan_bitmap'] * 1e3:.1f} ms, chain2 "
+        f"{best['chain2'] * 1e3:.1f} ms, raw scan "
+        f"{best['scan_raw'] * 1e3:.1f} ms; full seed "
+        f"{min(f['seed_candidates'] for f in line['full']) * 1e3:.1f} ms + "
+        f"suppress {min(f['suppress'] for f in line['full']) * 1e3:.1f} ms;"
+        f" {time.perf_counter() - t0:.1f} s")
+    return d1_launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     sys.path.insert(0, str(ROOT))
@@ -2391,7 +2538,7 @@ def main() -> int:
                                      paths, n_reads, v3_prefix, "dma")
         g1_launches, stats4b = timed("4b", phase_onepass_path, Path(tmp),
                                      paths, n_reads, v3_prefix, "gather")
-        timed("5", phase_bench)
+        timed("5", phase_bench, Path(tmp))
         step_fwd, step_rev, step_g1 = timed("6", phase_dist_step, paths)
         run_fwd, run_rev, stats6 = timed("6 run", phase_dist_run, Path(tmp),
                                          paths, v3_prefix)
@@ -2402,6 +2549,7 @@ def main() -> int:
                       t_start, phase3_wall)
         torch.cuda.empty_cache()
         scaling_fwd, scaling_rev = timed("9", phase_scaling, paths)
+        seed_d1 = timed("10", phase_seed_profile, paths, n_reads)
 
     # Each kernel's launches in the JSON line are those of its own path's
     # run (K1, K1', D1 and A1: phase 3, `run`; K3: phase 4; K4: phase 2c;
@@ -2417,6 +2565,8 @@ def main() -> int:
         for mode, launches in modes.items()))
     log(f"[kernels] launches of phase 9 (bench_scaling, both steps): K1 "
         f"{scaling_fwd}, K1' {scaling_rev}")
+    log(f"[kernels] launches of phase 10 (profile_seed5 at 4,096 and 16,384 "
+        f"reads): D1 {seed_d1}")
     source = "svjedi_tpu_torch/kernels/csrc/band_dp_onepass.cu"
     v3_source = "svjedi_tpu_torch/kernels/csrc/band_dp_v3.cu"
     print(json.dumps({"kernels": [{

@@ -25,7 +25,9 @@ Configurations (``SVJT_BENCH_CONFIG``):
   ``SVJT_SCALE_TYPES``, ``SVJT_SCALE_COV``x of reads; seeds 2 and 11),
   decoy on; a warm pass gated at ``SVJT_SCALE_MIN_ACC`` accuracy against
   the truth, then a timed pass (or, with ``SVJT_SCALE_ONE_PASS=1``, the
-  warm pass timed); the metric is ``scale_reads_per_s_per_chip``.
+  warm pass timed); the metric is ``scale_reads_per_s_per_chip``. With
+  ``SVJT_SCALE_MEMLOG=/path.tsv`` a sampler thread writes the JAX bench's
+  phase-tagged memory profile there (:class:`MemLog`).
 
 Both passes run ``align_and_count`` with ``collect_audit=False``: they time
 seeding (the device minimizer scan where it runs), the DP kernels and
@@ -42,6 +44,7 @@ import re
 import resource
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -94,8 +97,79 @@ def _cur_rss_gb() -> float:
     return 0.0
 
 
+#: The labels of the scale bench's phases, in the order it sets them.
+MEMLOG_PHASES = ("start", "sim", "sim_reads", "graph", "panel", "index",
+                 "decoy", "align_warm", "align_timed")
+
+
+class MemLog:
+    """The ``SVJT_SCALE_MEMLOG`` profile: current RSS against the active phase.
+
+    Given a path, a sampler thread writes the JAX bench's tab-separated
+    header ``t_s rss_gb phase`` and then, every 0.5 s, the seconds since
+    it started (one decimal), the current RSS (``VmRSS``, GB, two
+    decimals) and the active phase label. :meth:`enter` also writes a row
+    at once, so that a phase shorter than the period still shows.
+    :meth:`stop` ends the sampling (the JAX sampler runs until the process
+    exits), joins the thread and closes the file. Without a path nothing
+    is written and no thread starts.
+    """
+
+    PERIOD_S = 0.5
+
+    def __init__(self, path=None):
+        self._phase = MEMLOG_PHASES[0]
+        self._stopped = threading.Event()
+        self._lock = threading.Lock()
+        self._fh = None
+        self._thread = None
+        if path:
+            self._fh = open(path, "w")
+            self._t0 = time.perf_counter()
+            self._fh.write("t_s\trss_gb\tphase\n")
+            self._thread = threading.Thread(target=self._sample,
+                                            name="svjt-scale-memlog",
+                                            daemon=True)
+            self._thread.start()
+
+    def enter(self, label: str) -> None:
+        """Make ``label`` the active phase."""
+        self._phase = label
+        self._row()
+
+    def _row(self) -> None:
+        with self._lock:
+            if self._fh is not None and not self._fh.closed:
+                self._fh.write(f"{time.perf_counter() - self._t0:.1f}\t"
+                               f"{_cur_rss_gb():.2f}\t{self._phase}\n")
+                self._fh.flush()
+
+    def _sample(self) -> None:
+        while True:
+            self._row()
+            if self._stopped.wait(self.PERIOD_S):
+                return
+
+    def stop(self) -> None:
+        self._stopped.set()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._fh is not None:
+            with self._lock:
+                self._fh.close()
+
+
 def scale_bench(device: torch.device) -> int:
     """Throughput on the simulated scale configuration."""
+    memlog = MemLog(os.environ.get("SVJT_SCALE_MEMLOG"))
+    try:
+        return _scale_bench(device, memlog)
+    finally:
+        memlog.stop()
+
+
+def _scale_bench(device: torch.device, memlog: MemLog) -> int:
     from .align.index import build_panel_index
     from .align.pipeline import align_and_count, use_device_scan
     from .config import AlignConfig, GenotypeConfig
@@ -116,6 +190,7 @@ def scale_bench(device: torch.device) -> int:
     one_pass = os.environ.get("SVJT_SCALE_ONE_PASS", "0") == "1"
     per = mb * 1_000_000 // n_chroms
     rng = np.random.default_rng(11)
+    memlog.enter("sim")
     s = sim.simulate(
         seed=2, chrom_lengths={f"chr{i + 1}": per for i in range(n_chroms)},
         n_svs=n_svs, sv_types=sv_types,
@@ -125,19 +200,24 @@ def scale_bench(device: torch.device) -> int:
     seed_path = "device" if use_device_scan(cfg) else "host"
     with tempfile.TemporaryDirectory() as tmp:
         reads_path = os.path.join(tmp, "reads.fastq")
+        memlog.enter("sim_reads")
         n_reads, n_bases = sim.simulate_reads_fastq(rng, s.haplotypes,
                                                     coverage=cov,
                                                     path=reads_path)
         vcf = os.path.join(tmp, "t.vcf")
         sim.write_truth_vcf(s, vcf)
         parsed = parse_vcf_svs(vcf, {c: len(x) for c, x in s.chroms.items()})
+        memlog.enter("graph")
         graph = build_graph(s.chroms, parsed)
+        memlog.enter("panel")
         panel = build_panel(graph, flank=cfg.flank,
                             cluster_gap=cfg.cluster_gap,
                             max_paths_per_cluster=cfg.max_paths_per_cluster)
+        memlog.enter("index")
         index = build_panel_index(
             panel, k=cfg.kmer, w=cfg.window,
             max_hits_per_minimizer=cfg.max_hits_per_minimizer)
+        memlog.enter("decoy")
         decoy = _build_decoy(panel, cfg)
         s = None  # the haplotypes are on disk as reads now
         pre_align_resident_gb = _cur_rss_gb()
@@ -153,7 +233,10 @@ def scale_bench(device: torch.device) -> int:
             _sync(device)
             return counts, time.perf_counter() - t0, timings
 
+        memlog.enter("align_warm")
         counts, dt, timings = timed_pass()  # warm + correctness input
+        if one_pass:
+            memlog.stop()
         _log_pass(f"warm reads={n_reads} total={dt:.2f}s", timings, seed_path)
         out_vcf = os.path.join(tmp, "g.vcf")
         write_genotyped_vcf(vcf, out_vcf, counts)
@@ -165,7 +248,9 @@ def scale_bench(device: torch.device) -> int:
                           error="scale accuracy check failed"))
             return 1
         if not one_pass:
+            memlog.enter("align_timed")
             _, dt, timings = timed_pass()
+            memlog.stop()
             _log_pass(f"timed reads={n_reads} total={dt:.2f}s", timings,
                       seed_path)
     peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
@@ -179,11 +264,27 @@ def scale_bench(device: torch.device) -> int:
         f"accuracy={acc.group(1)} align_s={dt:.3f} "
         f"peak_host_rss_gb={peak_gb:.1f} "
         f"pre_align_resident_gb={pre_align_resident_gb:.1f} "
+        f"post_align_resident_gb={_cur_rss_gb():.1f} "
         f"device={_device_name(device)}",
         file=sys.stderr,
     )
     print(_result("scale_reads_per_s_per_chip", n_reads / dt))
     return 0
+
+
+def tile_reads(base, reps: int):
+    """The reads of ``base`` repeated ``reps`` times, renamed
+    ``name/rep``."""
+    from .io.fastq import ReadSet
+
+    return ReadSet(
+        names=[f"{n}/{r}" for r in range(reps) for n in base.names],
+        codes=np.tile(base.codes, reps),
+        offsets=np.concatenate(
+            [base.offsets[:-1] + r * base.codes.size for r in range(reps)]
+            + [np.array([base.codes.size * reps])]
+        ),
+    )
 
 
 def golden_bench(device: torch.device, test_dir) -> int:
@@ -198,7 +299,7 @@ def golden_bench(device: torch.device, test_dir) -> int:
     from .graph.cluster import build_panel
     from .graph.svparse import parse_vcf_svs
     from .io.fasta import read_fasta
-    from .io.fastq import ReadSet, read_reads
+    from .io.fastq import read_reads
 
     if test_dir is None:
         print(_result("reads_per_s_per_chip", 0.0,
@@ -244,14 +345,7 @@ def golden_bench(device: torch.device, test_dir) -> int:
                       error="golden genotype check failed"))
         return 1
 
-    reps = ReadSet(
-        names=[f"{n}/{r}" for r in range(reps_n) for n in base.names],
-        codes=np.tile(base.codes, reps_n),
-        offsets=np.concatenate(
-            [base.offsets[:-1] + r * base.codes.size for r in range(reps_n)]
-            + [np.array([base.codes.size * reps_n])]
-        ),
-    )
+    reps = tile_reads(base, reps_n)
     # Pass 0 warms every shape and host buffer; the metric is the best of
     # the later passes.
     dt = None

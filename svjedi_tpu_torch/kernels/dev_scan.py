@@ -25,6 +25,10 @@ MAX_W = 64
 #: Kernel launches since import (or since a caller reset it to 0). Counted
 #: only where the CUDA kernel is launched, never by the plain version.
 launches = 0
+#: None, or a list to which each launch appends its (start, end) CUDA
+#: events, recorded on the launch's stream just around it (the seed
+#: profiler, ``profile_seed5.py``, reads the kernel's own time from them).
+launch_events = None
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -159,11 +163,19 @@ def dev_scan(reads2: torch.Tensor, offsets32: torch.Tensor, k: int, w: int,
     lib = build.load_library()
     out = torch.empty(n_cap // 8, dtype=torch.uint8, device=reads2.device)
     with torch.cuda.device(reads2.device):
-        stream = torch.cuda.current_stream(reads2.device).cuda_stream
+        stream = torch.cuda.current_stream(reads2.device)
+        events = launch_events
+        if events is not None:
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record(stream)
         rc = lib.dev_scan_launch(
             reads2.data_ptr(), offsets32.data_ptr(), offsets32.shape[0] - 1,
-            n_cap, k, w, out.data_ptr(), stream,
+            n_cap, k, w, out.data_ptr(), stream.cuda_stream,
         )
+        if events is not None:
+            end.record(stream)
+            events.append((start, end))
     build.check(lib, rc, "dev_scan kernel launch")
     launches += 1
     return out
