@@ -30,6 +30,7 @@ import torch
 from ..config import AlignConfig, GenotypeConfig
 from ..graph.cluster import Panel
 from ..io.fastq import ReadSet
+from ..utils.spans import add, span
 from .extend import DPParams
 from .index import PanelIndex
 from .seed import Candidates, ChainParams, seed_candidates
@@ -302,6 +303,13 @@ class ChunkDispatch:
     #: per-block forward scores (set by finalize_chunk; the reverse-pass
     #: invariant check compares against the first block's own score)
     block_score: Optional[np.ndarray] = None
+    #: work handed to the device: the forward pass's kept windows and their
+    #: rows, Σ m (set by dispatch_chunk); the reverse pass's winners without
+    #: a start and their rows, Σ (qe + 1) (set by dispatch_rev)
+    dp_problems: int = 0
+    dp_rows: int = 0
+    rev_problems: int = 0
+    rev_rows: int = 0
 
 
 # Copied verbatim from svjedi_tpu/align/pipeline.py:candidate_layout.
@@ -387,6 +395,8 @@ def dispatch_chunk(
     )
     disp.rw_start = rw_start
     order = np.flatnonzero(keep)
+    disp.dp_problems = len(order)
+    disp.dp_rows = int(m32[order].sum(dtype=np.int64))
     bucket_of = np.array(
         [_pick_bucket(int(v), cfg.buckets) for v in m32[order]],
         dtype=np.int64,
@@ -720,6 +730,8 @@ def dispatch_rev(
     if len(need) == 0:
         return
     ci = win[need]
+    disp.rev_problems = len(need)
+    disp.rev_rows = int((disp.qe_win[ci] + 1).sum(dtype=np.int64))
     # Rebucket by the CLAMPED window length m' = qe+1 (the real aligned
     # span), not the forward bucket.
     buckets = np.array(
@@ -1064,11 +1076,11 @@ def compute_winner_stats(
     pieces are independent and the sums integer, so the batching changes
     no output. ``dp`` replaces the stats DP (default
     :func:`extend.band_dp_stats_batch`); ``timings`` gains the seconds of
-    the host's piece assembly (``audit_assembly_s``) and of the DP calls
-    up to their results on the host (``audit_dp_s``).
+    the piece table and bucket pick (``audit_table_s``), of the host's
+    piece assembly (``audit_assembly_s``) and of the DP calls up to their
+    results on the host (``audit_dp_s``), and the pieces and their rows
+    handed to the DP (``audit_pieces``, ``audit_rows``).
     """
-    import time
-
     from .extend import band_dp_stats_batch
 
     if dp is None:
@@ -1088,31 +1100,34 @@ def compute_winner_stats(
     tspan = (winners.te - winners.ts + 1).astype(np.int64)
 
     # Piece table: (winner, piece q window [a, b), t window start).
-    p_win, p_a, p_b, p_t0 = [], [], [], []
-    for wi in range(n):
-        qs, qe = int(winners.qs[wi]), int(winners.qe[wi])
-        ts = int(winners.ts[wi])
-        span = qe - qs + 1
-        if span <= 0:
-            continue
-        for a in range(qs, qe + 1, PIECE):
-            b = min(a + PIECE, qe + 1)
-            t_a = ts + round((a - qs) * int(tspan[wi]) / span)
-            p_win.append(wi)
-            p_a.append(a)
-            p_b.append(b)
-            p_t0.append(t_a - B2 // 2)
-    p_win = np.asarray(p_win, np.int64)
-    p_a = np.asarray(p_a, np.int64)
-    p_b = np.asarray(p_b, np.int64)
-    p_t0 = np.asarray(p_t0, np.int64)
-    p_m = p_b - p_a
+    with span(timings, "audit_table_s", "align.audit.table"):
+        p_win, p_a, p_b, p_t0 = [], [], [], []
+        for wi in range(n):
+            qs, qe = int(winners.qs[wi]), int(winners.qe[wi])
+            ts = int(winners.ts[wi])
+            rows = qe - qs + 1
+            if rows <= 0:
+                continue
+            for a in range(qs, qe + 1, PIECE):
+                b = min(a + PIECE, qe + 1)
+                t_a = ts + round((a - qs) * int(tspan[wi]) / rows)
+                p_win.append(wi)
+                p_a.append(a)
+                p_b.append(b)
+                p_t0.append(t_a - B2 // 2)
+        p_win = np.asarray(p_win, np.int64)
+        p_a = np.asarray(p_a, np.int64)
+        p_b = np.asarray(p_b, np.int64)
+        p_t0 = np.asarray(p_t0, np.int64)
+        p_m = p_b - p_a
 
-    order = np.argsort(p_m, kind="stable")
-    bucket_of = np.array(
-        [_pick_bucket(int(v), cfg.buckets) for v in p_m[order]],
-        dtype=np.int64,
-    )
+        order = np.argsort(p_m, kind="stable")
+        bucket_of = np.array(
+            [_pick_bucket(int(v), cfg.buckets) for v in p_m[order]],
+            dtype=np.int64,
+        )
+    add(timings, "audit_pieces", len(p_m))
+    add(timings, "audit_rows", p_m.sum())
     rc_cache: Dict[int, np.ndarray] = {}
 
     def oriented_read(read_id: int, strand: int) -> np.ndarray:
@@ -1124,52 +1139,44 @@ def compute_winner_stats(
 
     score_sum = np.zeros(n, dtype=np.int64)
     n_diag_sum = np.zeros(n, dtype=np.int64)
-    assembly_s = dp_s = 0.0
     for bucket in sorted(set(bucket_of.tolist())):
         sel = order[bucket_of == bucket]
-        t0 = time.perf_counter()
-        P = len(sel)
-        q = np.full((P, bucket), 4, dtype=np.int8)
-        t = np.full((P, bucket + B2), 4, dtype=np.int8)
-        for row, pi in enumerate(sel):
-            wi = int(p_win[pi])
-            a, b = int(p_a[pi]), int(p_b[pi])
-            window = oriented_read(
-                int(winners.read[wi]), int(winners.strand[wi])
-            )[a:b]
-            q[row, : len(window)] = window
-            # Target clamped to the winning span so the rectangle
-            # union stays exact.
-            seq = panel.paths[int(winners.path[wi])].seq
-            t_start = int(p_t0[pi])
-            src_lo = max(int(winners.ts[wi]), t_start, 0)
-            src_hi = min(
-                int(winners.te[wi]) + 1,
-                t_start + bucket + B2,
-                len(seq),
+        with span(timings, "audit_assembly_s", "align.audit.assembly"):
+            P = len(sel)
+            q = np.full((P, bucket), 4, dtype=np.int8)
+            t = np.full((P, bucket + B2), 4, dtype=np.int8)
+            for row, pi in enumerate(sel):
+                wi = int(p_win[pi])
+                a, b = int(p_a[pi]), int(p_b[pi])
+                window = oriented_read(
+                    int(winners.read[wi]), int(winners.strand[wi])
+                )[a:b]
+                q[row, : len(window)] = window
+                # Target clamped to the winning span so the rectangle
+                # union stays exact.
+                seq = panel.paths[int(winners.path[wi])].seq
+                t_start = int(p_t0[pi])
+                src_lo = max(int(winners.ts[wi]), t_start, 0)
+                src_hi = min(
+                    int(winners.te[wi]) + 1,
+                    t_start + bucket + B2,
+                    len(seq),
+                )
+                if src_hi > src_lo:
+                    t[row, src_lo - t_start : src_hi - t_start] = seq[
+                        src_lo:src_hi
+                    ]
+        with span(timings, "audit_dp_s", "align.audit.dp"):
+            out = dp(
+                torch.from_numpy(q).to(device),
+                torch.from_numpy(t).to(device), B2, params,
             )
-            if src_hi > src_lo:
-                t[row, src_lo - t_start : src_hi - t_start] = seq[
-                    src_lo:src_hi
-                ]
-        t1 = time.perf_counter()
-        out = dp(
-            torch.from_numpy(q).to(device), torch.from_numpy(t).to(device),
-            B2, params,
-        )
-        host = torch.stack(
-            [out["matches"], out["n_diag"], out["score"]]
-        ).cpu().numpy().astype(np.int64)
-        t2 = time.perf_counter()
-        assembly_s += t1 - t0
-        dp_s += t2 - t1
+            host = torch.stack(
+                [out["matches"], out["n_diag"], out["score"]]
+            ).cpu().numpy().astype(np.int64)
         np.add.at(winners.matches, p_win[sel], host[0])
         np.add.at(n_diag_sum, p_win[sel], host[1])
         np.add.at(score_sum, p_win[sel], host[2])
-    if timings is not None:
-        timings["audit_assembly_s"] = (
-            timings.get("audit_assembly_s", 0.0) + assembly_s)
-        timings["audit_dp_s"] = timings.get("audit_dp_s", 0.0) + dp_s
     winners.blocklen[:] = np.maximum(qspan + tspan - n_diag_sum, 1)
     # Piece re-scores can deviate from the chain score in both directions
     # (piece cuts lose alignment continuity; the doubled band recovers
@@ -1271,6 +1278,34 @@ def use_device_scan(align_cfg: AlignConfig) -> bool:
     )
 
 
+#: ``align_and_count``'s ``timings``: host seconds of the calling thread's
+#: steps (spans ``align.*`` in a profiler's trace), none inside another.
+#: With the genotyping they cover a job.
+LOOP_SPANS = (
+    "merge_index_s", "pull_s", "upload_s", "scan_dispatch_s", "seed_s",
+    "dp_s", "fwd_exec_s", "rev_disp_s", "rev_exec_s", "count_s", "trim_s",
+    "merge_winners_s",
+)
+#: Seconds inside those: ``finalize_s`` in ``rev_disp_s``; ``prune_s``, the
+#: audit's ``audit_table_s``, ``audit_assembly_s`` and ``audit_dp_s``, and
+#: ``count_support_s`` in ``count_s``; and the seeder thread's
+#: ``seed_cpu_s`` (its wall time per chunk) with ``scan_wait_s`` (the wait
+#: for the device scan's bitmask) inside it.
+NESTED_SPANS = (
+    "finalize_s", "prune_s", "audit_table_s", "audit_assembly_s",
+    "audit_dp_s", "count_support_s", "seed_cpu_s", "scan_wait_s",
+)
+#: Work handed to each step: chunks pulled, candidates seeded, winners
+#: counted; the forward DP's kept windows and Σ m, the reverse pass's
+#: winners and Σ (qe + 1), the audit's pieces and Σ rows; and the device
+#: scan's positions (n_codes − k + 1), bases and read-offset entries.
+WORK_COUNTERS = (
+    "n_chunks", "n_candidates", "n_winners", "dp_problems", "dp_rows",
+    "rev_problems", "rev_rows", "audit_pieces", "audit_rows",
+    "scan_positions", "scan_codes", "scan_offsets",
+)
+
+
 def align_and_count(
     reads: ReadSet,
     panel: Panel,
@@ -1305,9 +1340,10 @@ def align_and_count(
     one cache each); the per-(SV, allele) count merge, the pipeline's only
     cross-read reduction, is an associative sum over chunks on the host, so
     the devices' results combine exactly.
-    """
-    import time
 
+    ``timings`` (a dict, or None) gains the keys of :data:`LOOP_SPANS`,
+    :data:`NESTED_SPANS` and :data:`WORK_COUNTERS`.
+    """
     from . import dev_scan
     from . import device as dev
 
@@ -1316,11 +1352,10 @@ def align_and_count(
     use_dev_scan = use_device_scan(align_cfg)
 
     if timings is not None:
-        timings.setdefault("seed_s", 0.0)
-        timings.setdefault("dp_s", 0.0)
-        timings.setdefault("count_s", 0.0)
-        timings.setdefault("n_candidates", 0)
-        timings.setdefault("n_winners", 0)
+        for key in LOOP_SPANS + NESTED_SPANS:
+            timings.setdefault(key, 0.0)
+        for key in WORK_COUNTERS:
+            timings.setdefault(key, 0)
 
     counts: Dict[str, List[int]] = {}
     audit: Dict[str, List[List[str]]] = {}
@@ -1340,7 +1375,8 @@ def align_and_count(
     if decoy is not None and not sharded_decoy:
         from .index import merge_indexes
 
-        seed_index = merge_indexes(index, decoy.index)
+        with span(timings, "merge_index_s", "align.merge_indexes"):
+            seed_index = merge_indexes(index, decoy.index)
 
     # Phase 1 — dispatch: seed each chunk and enqueue its DP batches; all
     # results stay on device. Phase 2 — flush: one device→host copy for
@@ -1355,17 +1391,24 @@ def align_and_count(
     pending: List[Tuple[int, ReadSet, ChunkDispatch]] = []
     pending_bytes = [0]  # list: mutated by the nested chunk loop
 
+    def count_work(disp, *keys):
+        for key in keys:
+            add(timings, key, getattr(disp, key))
+
     def accumulate(start, chunk, disp, winners):
-        winners = prune_secondaries(winners, chunk, align_cfg)
-        winners = cross_cluster_prune(winners, chunk)
+        with span(timings, "prune_s", "align.prune"):
+            winners = prune_secondaries(winners, chunk, align_cfg)
+            winners = cross_cluster_prune(winners, chunk)
         if collect_audit:
-            compute_winner_stats(chunk, panel, winners, align_cfg,
-                                 dev.device_of(disp.device_data),
-                                 timings=timings)
-        chunk_counts, chunk_audit = count_support(
-            panel, winners, chunk, genotype_cfg.d_over, collect_audit,
-            min_density=_min_density,
-        )
+            with span(None, None, "align.audit"):
+                compute_winner_stats(chunk, panel, winners, align_cfg,
+                                     dev.device_of(disp.device_data),
+                                     timings=timings)
+        with span(timings, "count_support_s", "align.count_support"):
+            chunk_counts, chunk_audit = count_support(
+                panel, winners, chunk, genotype_cfg.d_over, collect_audit,
+                min_density=_min_density,
+            )
         for tag, pair in chunk_counts.items():
             entry = counts.setdefault(tag, [0, 0])
             entry[0] += pair[0]
@@ -1384,6 +1427,7 @@ def align_and_count(
         (host_rows,) = collect_outs([disp])
         winners, win = finalize_chunk(chunk, index, align_cfg, disp, host_rows)
         dispatch_rev(align_cfg, disp, winners, win)
+        count_work(disp, "rev_problems", "rev_rows")
         (rev_rows,) = collect_rev([disp])
         patch_rev(align_cfg, disp, winners, rev_rows)
         accumulate(start, chunk, disp, winners)
@@ -1406,6 +1450,7 @@ def align_and_count(
                         chunk, panel, index, disp.cands, align_cfg,
                         device_data, batch_size=batch_size, engine=engine,
                     )
+                    count_work(d2, "dp_problems", "dp_rows")
                     process_one(start, chunk, d2)
                     break
                 except Exception:
@@ -1420,9 +1465,9 @@ def align_and_count(
         pending.clear()
 
     def flush():
-        tf0 = time.perf_counter()
         try:
-            per_chunk = collect_outs([d for (_, _, d) in pending])
+            with span(timings, "fwd_exec_s", "align.fetch"):
+                per_chunk = collect_outs([d for (_, _, d) in pending])
         except Exception as exc:
             print(
                 f"[align] WARNING: bulk fetch failed ({exc!r}); "
@@ -1433,32 +1478,29 @@ def align_and_count(
                 timings["n_retries"] = timings.get("n_retries", 0) + 1
             flush_retry()
             return
-        tf1 = time.perf_counter()
         # Pass 2: winner starts via the v3 reverse pass (one more dispatch
         # round + one bulk fetch for all chunks; nothing for one-pass rows).
         finalized = []
-        for (start, chunk, disp), host_rows in zip(pending, per_chunk):
-            winners, win = finalize_chunk(
-                chunk, index, align_cfg, disp, host_rows
-            )
-            dispatch_rev(align_cfg, disp, winners, win)
-            finalized.append(winners)
-        tf2 = time.perf_counter()
-        rev_rows_all = collect_rev([d for (_, _, d) in pending])
-        t2 = time.perf_counter()
-        if timings is not None:
-            timings["fwd_exec_s"] = timings.get("fwd_exec_s", 0.0) + (tf1 - tf0)
-            timings["rev_disp_s"] = timings.get("rev_disp_s", 0.0) + (tf2 - tf1)
-            timings["rev_exec_s"] = timings.get("rev_exec_s", 0.0) + (t2 - tf2)
-        for (start, chunk, disp), winners, rev_rows in zip(
-            pending, finalized, rev_rows_all
-        ):
-            patch_rev(align_cfg, disp, winners, rev_rows)
-            accumulate(start, chunk, disp, winners)
-        pending.clear()
-        if timings is not None:
-            timings["count_s"] += time.perf_counter() - t2
-        _malloc_trim()
+        with span(timings, "rev_disp_s", "align.rev"):
+            for (start, chunk, disp), host_rows in zip(pending, per_chunk):
+                with span(timings, "finalize_s", "align.finalize"):
+                    winners, win = finalize_chunk(
+                        chunk, index, align_cfg, disp, host_rows
+                    )
+                dispatch_rev(align_cfg, disp, winners, win)
+                count_work(disp, "rev_problems", "rev_rows")
+                finalized.append(winners)
+        with span(timings, "rev_exec_s", "align.fetch_rev"):
+            rev_rows_all = collect_rev([d for (_, _, d) in pending])
+        with span(timings, "count_s", "align.count"):
+            for (start, chunk, disp), winners, rev_rows in zip(
+                pending, finalized, rev_rows_all
+            ):
+                patch_rev(align_cfg, disp, winners, rev_rows)
+                accumulate(start, chunk, disp, winners)
+            pending.clear()
+        with span(timings, "trim_s", "align.trim"):
+            _malloc_trim()
 
     chain_params = ChainParams(
         min_anchors=align_cfg.min_anchors,
@@ -1476,49 +1518,51 @@ def align_and_count(
 
         Host lookup and chaining, after the host scan or (``scan_out``, the
         device scan's pending bitmask) one wait for the bitmask's copy; no
-        device call. Returns (candidates, cpu_seconds).
+        device call. Returns (candidates, {"seed_cpu_s": the call's seconds,
+        "scan_wait_s": the wait's}).
         """
-        ts0 = time.perf_counter()
-        bits = (
-            dev_scan.fetch_bitmask(scan_out)
-            if scan_out is not None
-            else None
-        )
-        cands = seed_candidates(
-            chunk, seed_index, chain_params=chain_params,
-            threads=align_cfg.threads,
-            panel_path_limit=(
-                n_panel_paths
-                if decoy is not None and not sharded_decoy
-                else 0
-            ),
-            bits=bits,
-        )
-        if decoy is not None and len(cands):
-            if sharded_decoy:
-                from ..dist.decoy_shard import (
-                    suppress_candidates_sharded,
-                )
+        spent: Dict[str, float] = {}
+        with span(spent, "seed_cpu_s", "align.seed"):
+            bits = None
+            if scan_out is not None:
+                with span(spent, "scan_wait_s", "align.seed.scan_wait"):
+                    bits = dev_scan.fetch_bitmask(scan_out)
+            cands = seed_candidates(
+                chunk, seed_index, chain_params=chain_params,
+                threads=align_cfg.threads,
+                panel_path_limit=(
+                    n_panel_paths
+                    if decoy is not None and not sharded_decoy
+                    else 0
+                ),
+                bits=bits,
+            )
+            if decoy is not None and len(cands):
+                if sharded_decoy:
+                    from ..dist.decoy_shard import (
+                        suppress_candidates_sharded,
+                    )
 
-                keep, dec_other, dec_same = suppress_candidates_sharded(
-                    chunk, cands, index, list(decoy), chain_params,
-                    threads=align_cfg.threads,
-                )
-            else:
-                from .decoy import suppress_candidates
+                    keep, dec_other, dec_same = suppress_candidates_sharded(
+                        chunk, cands, index, list(decoy), chain_params,
+                        threads=align_cfg.threads,
+                    )
+                else:
+                    from .decoy import suppress_candidates
 
-                is_panel = cands.path < n_panel_paths
-                dec = cands.take(~is_panel, path_offset=-n_panel_paths)
-                cands = cands.take(is_panel)
-                keep, dec_other, dec_same = suppress_candidates(
-                    chunk, cands, index, decoy, chain_params,
-                    threads=align_cfg.threads, dec=dec, return_margins=True,
-                )
-            cands.dec_other = dec_other
-            cands.dec_same = dec_same
-            if not keep.all():
-                cands = cands.take(keep)
-        return cands, time.perf_counter() - ts0
+                    is_panel = cands.path < n_panel_paths
+                    dec = cands.take(~is_panel, path_offset=-n_panel_paths)
+                    cands = cands.take(is_panel)
+                    keep, dec_other, dec_same = suppress_candidates(
+                        chunk, cands, index, decoy, chain_params,
+                        threads=align_cfg.threads, dec=dec,
+                        return_margins=True,
+                    )
+                cands.dec_other = dec_other
+                cands.dec_same = dec_same
+                if not keep.all():
+                    cands = cands.take(keep)
+        return cands, spent
 
     # Chunk pipeline: while chunk i's DP batches execute on the device, the
     # seeder thread computes chunk i+1's candidates. The first chunk's seed
@@ -1558,19 +1602,26 @@ def align_and_count(
         def pull(ci: int) -> bool:
             """Pull chunk ci, upload it, enqueue its device scan and submit
             its seed. Runs on this thread, as every device call does."""
-            item = next(chunk_iter, None)
+            with span(timings, "pull_s", "align.pull"):
+                item = next(chunk_iter, None)
             if item is None:
                 return False
+            add(timings, "n_chunks", 1)
             chunk_map[ci] = item
             di = ci % len(devices)
-            dd = dev.upload(item[1].codes, panel, devices[di],
-                            panel_caches[di], offsets=item[1].offsets)
+            with span(timings, "upload_s", "align.upload"):
+                dd = dev.upload(item[1].codes, panel, devices[di],
+                                panel_caches[di], offsets=item[1].offsets)
             device_datas[ci] = dd
-            scan_out = (
-                dev_scan.dispatch_scan(dd, seed_index.k, seed_index.w)
-                if use_dev_scan
-                else None
-            )
+            scan_out = None
+            if use_dev_scan:
+                with span(timings, "scan_dispatch_s", "align.scan"):
+                    scan_out = dev_scan.dispatch_scan(
+                        dd, seed_index.k, seed_index.w)
+                add(timings, "scan_positions",
+                    max(0, dd.n_codes - seed_index.k + 1))
+                add(timings, "scan_codes", dd.n_codes)
+                add(timings, "scan_offsets", dd.offsets32.numel())
             seed_futures[ci] = seeder.submit(seed_chunk, item[1], scan_out)
             return True
 
@@ -1579,49 +1630,46 @@ def align_and_count(
         while ci in chunk_map:
             pull(ci + 1)
             start, chunk = chunk_map.pop(ci)
-            t0 = time.perf_counter()
-            cands, seed_cpu = seed_futures.pop(ci).result()
-            t1 = time.perf_counter()
-            device_data = device_datas.pop(ci)
-            disp = dispatch_chunk(
-                chunk, panel, index, cands, align_cfg, device_data,
-                batch_size=batch_size, engine=engine,
-            )
-            t2 = time.perf_counter()
+            with span(timings, "seed_s", "align.seed_wait"):
+                cands, spent = seed_futures.pop(ci).result()
+            with span(timings, "dp_s", "align.dispatch"):
+                device_data = device_datas.pop(ci)
+                disp = dispatch_chunk(
+                    chunk, panel, index, cands, align_cfg, device_data,
+                    batch_size=batch_size, engine=engine,
+                )
+            count_work(disp, "dp_problems", "dp_rows")
+            if timings is not None:
+                for key, seconds in spent.items():
+                    timings[key] += seconds
+                timings["n_candidates"] += len(cands)
             pending.append((start, chunk, disp))
             pending_bytes[0] += _chunk_device_bytes(chunk.codes.size)
             if len(pending) >= flush_every or pending_bytes[0] > pending_budget:
                 flush()
                 pending_bytes[0] = 0
-
-            if timings is not None:
-                timings["seed_s"] += t1 - t0
-                timings["seed_cpu_s"] = (
-                    timings.get("seed_cpu_s", 0.0) + seed_cpu
-                )
-                timings["dp_s"] += t2 - t1
-                timings["n_candidates"] += len(cands)
             ci += 1
         flush()
 
-    if winner_parts:
-        merged = Winners(
-            *[
-                np.concatenate([getattr(w, f) for w in winner_parts])
-                for f in (
-                    "read", "cluster", "path", "strand", "score",
-                    "qs", "qe", "ts", "te",
-                )
-            ]
-        )
-        for f in ("matches", "blocklen", "mapq", "anchor_ts", "anchor_te",
-                  "rescore_deficit", "rescore_flag"):
-            if all(getattr(w, f) is not None for w in winner_parts):
-                setattr(
-                    merged, f,
-                    np.concatenate([getattr(w, f) for w in winner_parts]),
-                )
-    else:
-        empty = np.zeros(0, np.int64)
-        merged = Winners(*([empty] * 9))
+    with span(timings, "merge_winners_s", "align.merge_winners"):
+        if winner_parts:
+            merged = Winners(
+                *[
+                    np.concatenate([getattr(w, f) for w in winner_parts])
+                    for f in (
+                        "read", "cluster", "path", "strand", "score",
+                        "qs", "qe", "ts", "te",
+                    )
+                ]
+            )
+            for f in ("matches", "blocklen", "mapq", "anchor_ts", "anchor_te",
+                      "rescore_deficit", "rescore_flag"):
+                if all(getattr(w, f) is not None for w in winner_parts):
+                    setattr(
+                        merged, f,
+                        np.concatenate([getattr(w, f) for w in winner_parts]),
+                    )
+        else:
+            empty = np.zeros(0, np.int64)
+            merged = Winners(*([empty] * 9))
     return counts, audit, merged

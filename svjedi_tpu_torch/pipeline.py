@@ -324,10 +324,10 @@ def run_pipeline(
               band_dp_gather.launches - gather_launches0)
     stats.set("band_dp_stats_launches",
               band_dp_stats.launches - stats_launches0)
-    # The audit re-score's split: the host's piece assembly and the stats
-    # DP up to its results on the host (compute_winner_stats).
-    for key in ("audit_assembly_s", "audit_dp_s"):
-        stats.set(key, round(align_timings.get(key, 0.0), 4))
+    # The align stage's host spans (seconds) and work counters
+    # (align_and_count's timings), the audit's split among them.
+    for key, value in align_timings.items():
+        stats.set(key, round(value, 4) if isinstance(value, float) else value)
     if device.type == "cuda":
         stats.set(
             "device_max_memory_allocated",

@@ -94,6 +94,29 @@ def test_cli_run_matches_jax_vcf(single_runs):
     assert stats["counters"]["band_dp_dma_launches"] == 0
 
 
+def test_cli_run_stats_hold_the_align_spans_and_counters(single_runs):
+    """``_stats.json`` carries every key ``align_and_count`` writes: the
+    chunk loop's spans in seconds and its work counters."""
+    from svjedi_tpu_torch.align import pipeline as tpipe
+
+    stats = json.loads(
+        (single_runs / "svjedi_tpu_torch_stats.json").read_text())
+    counters = stats["counters"]
+    for key in tpipe.LOOP_SPANS + tpipe.NESTED_SPANS:
+        assert isinstance(counters[key], float) and counters[key] >= 0, key
+    for key in tpipe.WORK_COUNTERS:
+        assert isinstance(counters[key], int), key
+    assert counters["n_chunks"] >= 1
+    assert counters["dp_problems"] > 0 and counters["dp_rows"] > 0
+    assert counters["audit_pieces"] > 0 and counters["audit_rows"] > 0
+    assert counters["n_winners"] == counters["n_winning_alignments"]
+    # The one-pass gather engine leaves the reverse pass nothing to do.
+    assert counters["rev_problems"] == counters["rev_rows"] == 0
+    scanned = counters["seed_path"] == "device"
+    assert (counters["scan_positions"] > 0) == scanned
+    assert counters["merge_index_s"] > 0 and counters["pull_s"] > 0
+
+
 @pytest.mark.parametrize("suffix", [".gaf", "_informative_aln.json"])
 def test_cli_run_matches_jax_alignments(single_runs, suffix):
     """Winners' spans, hence the GAF and the audit table, equal the JAX
