@@ -14,7 +14,9 @@ JAX package's host modules.
 
 The numpy-only helpers are verbatim copies of the JAX module's (that module
 imports JAX, so they cannot be imported from it); each names its source and
-``tests/test_torch_align.py`` holds each copy to the original.
+``tests/test_torch_align.py`` holds each copy to the original. The chunk
+loop counts with the port's own :func:`count_support_flat`, which the tests
+hold to the verbatim :func:`count_support`.
 """
 
 from __future__ import annotations
@@ -1236,6 +1238,195 @@ def _audit_line(panel: Panel, w: Winners, reads: ReadSet, i: int) -> str:
     ) + "\t"
 
 
+@dataclass
+class CountTable:
+    """A panel's owned links, flattened once for :func:`count_support_flat`.
+
+    Path ``p`` owns entries ``offsets[p]:offsets[p + 1]`` (its ``owned`` in
+    walk order): tag id (into ``tag_names``), allele, junction offset and
+    link index. ``head[p]`` is the audit line's oriented node walk and the
+    path's untrimmed length, tab-joined; ``trim_left[p]`` rebases its
+    target coordinates.
+    """
+
+    offsets: np.ndarray
+    tag: np.ndarray
+    allele: np.ndarray
+    junction: np.ndarray
+    link: np.ndarray
+    tag_names: List[str]
+    head: np.ndarray
+    trim_left: np.ndarray
+
+
+def count_table(panel: Panel) -> CountTable:
+    """The panel's :class:`CountTable`, built on first use and kept on the
+    panel, so a catalogue pays for it once."""
+    table = panel.__dict__.get("_count_table")
+    if table is None:
+        table = _build_count_table(panel)
+        panel._count_table = table
+    return table
+
+
+def _build_count_table(panel: Panel) -> CountTable:
+    from ..graph.build import REV
+
+    nodes = panel.graph.nodes
+    tag_ids: Dict[str, int] = {}
+    flat = np.array(
+        [(tag_ids.setdefault(tag, len(tag_ids)), allele, j, li)
+         for path in panel.paths for tag, allele, j, li in path.owned],
+        dtype=np.int64,
+    ).reshape(-1, 4)
+    offsets = np.zeros(len(panel.paths) + 1, dtype=np.int64)
+    np.cumsum([len(path.owned) for path in panel.paths], out=offsets[1:])
+    head = np.empty(len(panel.paths), dtype=object)
+    head[:] = [
+        "".join(("<" if s == REV else ">") + nodes[n].name
+                for (n, s) in path.states) + f"\t{path.full_len}"
+        for path in panel.paths
+    ]
+    return CountTable(
+        offsets=offsets, tag=flat[:, 0], allele=flat[:, 1],
+        junction=flat[:, 2], link=flat[:, 3], tag_names=list(tag_ids),
+        head=head,
+        trim_left=np.array([p.trim_left for p in panel.paths], dtype=np.int64),
+    )
+
+
+def count_support_flat(
+    panel: Panel,
+    winners: Winners,
+    reads: ReadSet,
+    d_over: int = 100,
+    collect_audit: bool = True,
+    min_density: float = 0.0,
+    timings: Optional[Dict] = None,
+) -> Tuple[Dict[str, List[int]], Dict[str, List[List[str]]]]:
+    """:func:`count_support` over a flat winner × owned-link table: the same
+    counts and audit lines, in the same dict and list order.
+
+    Entries are taken row by row, each row's path links in walk order, as
+    :func:`count_support` inserts them; its rules run per entry array:
+    the density gate, the ``d_over`` overlap on both sides of the junction,
+    allele exclusivity per (read, tag) (the allele of the first entry of the
+    smallest row at the best score), then one count per (read, tag, link,
+    allele). Each counted row's audit line is formatted once, from the
+    panel's :class:`CountTable`, and serves all its crossings.
+
+    ``timings`` (a dict, or None) gains ``count_entries`` (winner × owned
+    entries tested), ``count_crossings`` (crossings counted: the sum of the
+    counts) and ``audit_line_rows`` (audit lines formatted).
+    """
+    counts: Dict[str, List[int]] = {}
+    audit: Dict[str, List[List[str]]] = {}
+    if timings is not None:
+        for key in ("count_entries", "count_crossings", "audit_line_rows"):
+            timings.setdefault(key, 0)
+    table = count_table(panel)
+    rows = np.arange(len(winners.read))
+    if min_density > 0 and len(rows):
+        span_len = np.maximum(1, winners.te - winners.ts + 1)
+        rows = np.flatnonzero(winners.score >= min_density * span_len)
+    path = winners.path[rows].astype(np.int64)
+    lo = table.offsets[path]
+    n_own = table.offsets[path + 1] - lo
+    row = np.repeat(rows, n_own)
+    col = np.arange(len(row)) + np.repeat(lo - np.cumsum(n_own) + n_own, n_own)
+    add(timings, "count_entries", len(row))
+    j = table.junction[col]
+    hit = ((j - winners.ts[row].astype(np.int64) >= d_over)
+           & (winners.te[row].astype(np.int64) - j + 1 >= d_over))
+    row, col = row[hit], col[hit]
+    if not len(row):
+        return counts, audit
+    tag, allele, link = table.tag[col], table.allele[col], table.link[col]
+
+    # (read, tag) segments, numbered in order of their first entry.
+    n_tags = len(table.tag_names)
+    _, first, inv = np.unique(winners.read[row].astype(np.int64) * n_tags + tag,
+                              return_index=True, return_inverse=True)
+    rank = np.empty(len(first), dtype=np.int64)
+    rank[np.argsort(first)] = np.arange(len(first))
+    seg = rank[inv]
+    # Allele exclusivity: a segment holding both alleles keeps that of its
+    # first entry at the best score (smallest row, then walk order).
+    has = np.zeros((len(first), 2), dtype=bool)
+    has[seg, allele] = True
+    mixed = has.all(axis=1)
+    if mixed.any():
+        score = winners.score[row].astype(np.int64)
+        order = np.lexsort((np.arange(len(row)), -score, seg))
+        lead = order[np.r_[True, seg[order][1:] != seg[order][:-1]]]
+        keep = ~mixed[seg] | (allele == allele[lead][seg])
+        row, seg, tag, allele, link = (
+            a[keep] for a in (row, seg, tag, allele, link))
+    # One count per (segment, link, allele): its first entry.
+    _, first = np.unique((seg * (int(link.max()) + 1) + link) * 2 + allele,
+                         return_index=True)
+    first.sort()
+    # count_support's order: segment by segment, entries in order within.
+    kept = first[np.argsort(seg[first], kind="stable")]
+    row, tag, allele = row[kept], tag[kept], allele[kept]
+    add(timings, "count_crossings", len(row))
+
+    tag_order = tag[np.sort(np.unique(tag, return_index=True)[1])].tolist()
+    per_tag = np.bincount(tag * 2 + allele, minlength=2 * n_tags).reshape(-1, 2)
+    names = table.tag_names
+    for t, pair in zip(tag_order, per_tag[tag_order].tolist()):
+        counts[names[t]] = pair
+    if not collect_audit:
+        return counts, audit
+
+    uniq, inv = np.unique(row, return_inverse=True)
+    lines = np.empty(len(uniq), dtype=object)
+    lines[:] = _audit_lines(table, winners, reads, uniq)
+    add(timings, "audit_line_rows", len(uniq))
+    group = tag * 2 + allele
+    order = np.argsort(group, kind="stable")
+    group, ordered = group[order], lines[inv[order]].tolist()
+    starts = np.flatnonzero(np.r_[True, group[1:] != group[:-1]])
+    ends = np.r_[starts[1:], len(group)]
+    by_group = {g: ordered[s:e] for g, s, e in
+                zip(group[starts].tolist(), starts.tolist(), ends.tolist())}
+    for t in tag_order:
+        audit[names[t]] = [by_group.get(2 * t, []), by_group.get(2 * t + 1, [])]
+    return counts, audit
+
+
+def _audit_lines(table: CountTable, w: Winners, reads: ReadSet,
+                 rows: np.ndarray) -> List[str]:
+    """:func:`_audit_line` of each winner row in ``rows``, byte for byte."""
+    read = w.read[rows].astype(np.int64)
+    rlen = np.diff(reads.offsets)[read]
+    strand = w.strand[rows].astype(np.int64)
+    qs, qe = w.qs[rows].astype(np.int64), w.qe[rows].astype(np.int64)
+    flip = strand != 0  # report on the forward read
+    qs, qe = np.where(flip, rlen - 1 - qe, qs), np.where(flip, rlen - 1 - qs, qe)
+    path = w.path[rows].astype(np.int64)
+    ts_full = w.ts[rows].astype(np.int64) + table.trim_left[path]
+    te_full = w.te[rows].astype(np.int64) + table.trim_left[path]
+    if w.matches is not None:
+        matches = w.matches[rows].astype(np.int64)
+        blocklen = np.maximum(1, w.blocklen[rows].astype(np.int64))
+    else:  # stats pass skipped: span-derived bounds
+        q_len, t_len = qe - qs + 1, te_full - ts_full + 1
+        matches, blocklen = np.minimum(q_len, t_len), np.maximum(q_len, t_len)
+    mapq = (w.mapq[rows].astype(np.int64) if w.mapq is not None
+            else np.full(len(rows), 60, dtype=np.int64))
+    names = reads.names
+    return [
+        f"{names[r]}\t{n}\t{a}\t{b}\t{'+-'[s]}\t{h}\t{x}\t{y}\t{m}\t{k}\t{q}"
+        f"\tid:f:{m / k:.6f}\t"
+        for r, n, a, b, s, h, x, y, m, k, q in zip(
+            read.tolist(), rlen.tolist(), qs.tolist(), (qe + 1).tolist(),
+            strand.tolist(), table.head[path].tolist(), ts_full.tolist(),
+            (te_full + 1).tolist(), matches.tolist(), blocklen.tolist(),
+            mapq.tolist())
+    ]
+
+
 def _hbm_bytes(cfg: AlignConfig, device: torch.device) -> int:
     """Device memory size for budgeting.
 
@@ -1297,12 +1488,15 @@ NESTED_SPANS = (
 )
 #: Work handed to each step: chunks pulled, candidates seeded, winners
 #: counted; the forward DP's kept windows and Σ m, the reverse pass's
-#: winners and Σ (qe + 1), the audit's pieces and Σ rows; and the device
-#: scan's positions (n_codes − k + 1), bases and read-offset entries.
+#: winners and Σ (qe + 1), the audit's pieces and Σ rows; the device
+#: scan's positions (n_codes − k + 1), bases and read-offset entries; and
+#: the count's winner × owned entries, crossings counted and audit lines
+#: formatted (:func:`count_support_flat`).
 WORK_COUNTERS = (
     "n_chunks", "n_candidates", "n_winners", "dp_problems", "dp_rows",
     "rev_problems", "rev_rows", "audit_pieces", "audit_rows",
-    "scan_positions", "scan_codes", "scan_offsets",
+    "scan_positions", "scan_codes", "scan_offsets", "count_entries",
+    "count_crossings", "audit_line_rows",
 )
 
 
@@ -1405,9 +1599,9 @@ def align_and_count(
                                      dev.device_of(disp.device_data),
                                      timings=timings)
         with span(timings, "count_support_s", "align.count_support"):
-            chunk_counts, chunk_audit = count_support(
+            chunk_counts, chunk_audit = count_support_flat(
                 panel, winners, chunk, genotype_cfg.d_over, collect_audit,
-                min_density=_min_density,
+                min_density=_min_density, timings=timings,
             )
         for tag, pair in chunk_counts.items():
             entry = counts.setdefault(tag, [0, 0])

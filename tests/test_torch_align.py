@@ -11,6 +11,7 @@ differ only where optimal alignments tie, and every differing span is
 checked to be optimal.
 """
 
+import dataclasses
 import importlib
 import inspect
 import re
@@ -436,6 +437,37 @@ def test_copied_helpers_behave_like_originals(bundle, chunk):
         assert tpipe.count_support(panel, w, reads, 100, True, density) == \
             jpipe.count_support(j["panel"], w, jr, 100, True, density)
         jpipe.compute_winner_stats(jr, j["panel"], w, j["cfg"])
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["density0", "density"])
+@pytest.mark.parametrize("stats", [True, False], ids=["stats", "no_stats"])
+def test_count_support_flat_matches_verbatim_and_jax(bundle, runs, stats,
+                                                      gated):
+    """``align_and_count``'s counting step on the job's winners (with the
+    audit's stats, and without them as where the stats pass is skipped):
+    the verbatim ``count_support``'s and JAX's counts and audit lines, in
+    dict and list order."""
+    j = bundle["svjedi_tpu"]
+    reads, panel, cfg, gcfg = _t(bundle, "reads", "panel", "cfg", "gcfg")
+    w = dataclasses.replace(runs[1][2])
+    assert w.matches is not None
+    if not stats:
+        w.matches = w.blocklen = None
+    density = resolve_min_count_density(gcfg, cfg) if gated else 0.0
+    assert density > 0 or not gated
+    timings = {}
+    ours = tpipe.count_support_flat(panel, w, reads, gcfg.d_over, True,
+                                    min_density=density, timings=timings)
+    for theirs in (
+        tpipe.count_support(panel, w, reads, gcfg.d_over, True, density),
+        jpipe.count_support(j["panel"], w, j["reads"], gcfg.d_over, True,
+                            density),
+    ):
+        assert list(ours[0].items()) == list(theirs[0].items())
+        assert list(ours[1].items()) == list(theirs[1].items())
+    crossings = sum(a + b for a, b in ours[0].values())
+    assert timings["count_crossings"] == crossings > 0
+    assert 0 < timings["audit_line_rows"] <= crossings
 
 
 def test_compute_winner_stats_matches_jax(bundle, chunk):

@@ -117,6 +117,16 @@ def test_cli_run_stats_hold_the_align_spans_and_counters(single_runs):
     assert counters["merge_index_s"] > 0 and counters["pull_s"] > 0
 
 
+def test_cli_run_stats_hold_the_count_counters(single_runs):
+    """``_stats.json`` carries the counting step's counters: winner x
+    owned entries tested, crossings counted and audit lines formatted."""
+    counters = json.loads(
+        (single_runs / "svjedi_tpu_torch_stats.json").read_text())["counters"]
+    entries, crossings, lines = (counters[k] for k in (
+        "count_entries", "count_crossings", "audit_line_rows"))
+    assert entries >= crossings >= lines > 0
+
+
 @pytest.mark.parametrize("suffix", [".gaf", "_informative_aln.json"])
 def test_cli_run_matches_jax_alignments(single_runs, suffix):
     """Winners' spans, hence the GAF and the audit table, equal the JAX

@@ -34,6 +34,8 @@ CPU = torch.device("cpu")
 OLD_KEYS = ("seed_s", "seed_cpu_s", "dp_s", "fwd_exec_s", "rev_disp_s",
             "rev_exec_s", "count_s", "audit_assembly_s", "audit_dp_s",
             "n_candidates", "n_winners")
+#: The counting step's work counters.
+COUNT_COUNTERS = ("count_entries", "count_crossings", "audit_line_rows")
 #: The metrics this change adds, each with the key it reads.
 NEW_METRICS = {
     "merge_index_ms_per_job": "merge_index_s",
@@ -154,7 +156,7 @@ def job(tmp_path_factory, port_native):  # noqa: F811
         wall = time.perf_counter() - t0
     assert counts and len(winners.read) > 0
     return SimpleNamespace(timings=timings, work=probes.work, wall=wall,
-                           cfg=cfg, n_reads=len(names))
+                           cfg=cfg, n_reads=len(names), counts=counts)
 
 
 def test_job_writes_every_key(job):
@@ -199,6 +201,17 @@ def test_counters_give_the_probes_work_exactly(job):
         assert ops > 0 and n_bytes > 0, kernel
         assert job.work[kernel] == [float(ops), float(n_bytes)], kernel
     assert t["scan_offsets"] == job.n_reads + t["n_chunks"]
+
+
+def test_count_counters_add_up(job):
+    """The counting step's counters: every crossing counted is an entry
+    tested, and each audit line formatted serves one or more crossings."""
+    t = job.timings
+    for key in COUNT_COUNTERS:
+        assert key in tpipe.WORK_COUNTERS, key
+    assert t["count_crossings"] == sum(a + b for a, b in job.counts.values())
+    assert t["count_entries"] >= t["count_crossings"] >= t["audit_line_rows"]
+    assert t["audit_line_rows"] > 0
 
 
 def _ctx(*jobs):
