@@ -7,7 +7,8 @@ For each seed, in one process: the cell's set-up as ``run.py`` makes it,
 one job of the program, and the job's numbers (``ad_gap``,
 ``model_mismatch``); then the control's numbers on the same inputs: the
 reference put in the program's place with the guarantee "the count of the
-allele with two breakpoints is halved" broken (``reference.control_vcf``).
+allele with two breakpoints is halved" broken (``control_vcf`` of the
+configuration's reference, ``cell.reference``).
 One JSON line per seed and side on standard output. ``--control-only``
 skips the program (the control needs no card). The benchmark's own runs do
 not run this.
@@ -26,17 +27,19 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from benchmark import cells as cellmod  # noqa: E402
-from benchmark import gen, reference  # noqa: E402
 
 
-def control_numbers(cat, sample, vcf_text: str, g: dict) -> dict:
-    truth = reference.truth_counts(cat, sample, g["d_over"])
-    table = reference.reference_counts(vcf_text, truth)
-    ref_cols = reference.expected_columns(vcf_text, table, g["min_support"],
-                                          g["err"])
-    ctl = reference.control_vcf(vcf_text, table, g["min_support"], g["err"])
-    return reference.compare(vcf_text, ctl, table, ref_cols,
-                             g["min_support"], g["err"])
+def control_numbers(cell, cat, sample, vcf_text: str) -> dict:
+    """The control's numbers on the cell's inputs, by the cell's
+    reference."""
+    ref, g = cell.reference, cell.config["guarantees"]
+    truth = ref.truth_counts(cat, sample, g["d_over"])
+    table = ref.reference_counts(vcf_text, truth)
+    ref_cols = ref.expected_columns(vcf_text, table, g["min_support"],
+                                    g["err"])
+    ctl = ref.control_vcf(vcf_text, table, g["min_support"], g["err"])
+    return ref.compare(vcf_text, ctl, table, ref_cols, g["min_support"],
+                       g["err"])
 
 
 def main(argv=None) -> int:
@@ -46,7 +49,6 @@ def main(argv=None) -> int:
     ap.add_argument("--control-only", action="store_true")
     args = ap.parse_args(argv)
     cell = cellmod.load_cell(args.workload)
-    g = cell.config["guarantees"]
     seeds = [int(s) for s in args.seeds.split(",")]
     device = None
     if not args.control_only:
@@ -74,14 +76,15 @@ def main(argv=None) -> int:
                 cat, sample = setup.cat, setup.sample
                 vcf_text = setup.vcf_path.read_text()
             else:
-                cat = gen.make_catalogue(cell.config, seed)
+                cat = cell.gen.make_catalogue(cell.config, seed)
                 cat.write_vcf(tmp / "catalogue.vcf")
                 vcf_text = (tmp / "catalogue.vcf").read_text()
-                sample = gen.make_sample(cat, cell.mix, seed,
-                                         tmp / "sample.fastq")
+                sample = cell.gen.make_sample(cat, cell.mix, seed,
+                                              tmp / "sample.fastq")
             print(json.dumps({"workload": cell.name, "seed": seed,
                               "side": "control",
-                              **control_numbers(cat, sample, vcf_text, g)}),
+                              **control_numbers(cell, cat, sample,
+                                                vcf_text)}),
                   flush=True)
     return 0
 

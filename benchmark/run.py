@@ -11,7 +11,10 @@ and run one warm job. The window: whole jobs back to back until
 per-sample work: ``align_and_count`` on a fresh read stream of the sample
 (audit on, decoy, default engine and chunking), then
 ``write_genotyped_vcf``. Every job's VCF and count table are judged against
-the plain reference (``reference.py``) once the window has closed.
+the configuration's plain reference (``cell.reference``, by default
+``reference.py``) once the window has closed. The catalogue and the sample
+come from the configuration's generator (``cell.gen``, by default
+``gen.py``); ``cells.py`` states what both provide.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
@@ -45,7 +48,7 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 from benchmark import cells as cellmod  # noqa: E402
-from benchmark import devtrace, gen, reference  # noqa: E402
+from benchmark import devtrace  # noqa: E402
 
 #: Top-level module names that must not be loaded: JAX and the JAX package.
 FORBIDDEN = ("jax", "jaxlib", "flax", "svjedi_tpu")
@@ -212,11 +215,12 @@ class Setup:
         self.align_cfg = AlignConfig()
         self.geno_cfg = GenotypeConfig(min_support=g["min_support"],
                                        err=g["err"], d_over=g["d_over"])
-        self.cat = gen.make_catalogue(cell.config, seed)
+        self.cat = cell.gen.make_catalogue(cell.config, seed)
         self.vcf_path = workdir / "catalogue.vcf"
         self.cat.write_vcf(self.vcf_path)
         self.fastq = workdir / "sample.fastq"
-        self.sample = gen.make_sample(self.cat, cell.mix, seed, self.fastq)
+        self.sample = cell.gen.make_sample(self.cat, cell.mix, seed,
+                                           self.fastq)
         t1 = time.monotonic()
         chroms = self.cat.fasta_dict()
         parsed = parse_vcf_svs(self.vcf_path,
@@ -293,17 +297,18 @@ def mbases_per_s(jobs, n_bases: int, t0: float, t1: float) -> float:
 def judge(setup: Setup, jobs, limits: dict) -> dict:
     """Every job's numbers against the reference; the worst over jobs."""
     g = setup.cell.config["guarantees"]
+    ref = setup.cell.reference
     catalogue = setup.vcf_path.read_text()
-    truth = reference.truth_counts(setup.cat, setup.sample, g["d_over"])
-    ref_cols = reference.expected_columns(
-        catalogue, reference.reference_counts(catalogue, truth),
+    truth = ref.truth_counts(setup.cat, setup.sample, g["d_over"])
+    ref_cols = ref.expected_columns(
+        catalogue, ref.reference_counts(catalogue, truth),
         g["min_support"], g["err"])
     worst = {"ad_gap": 0.0, "model_mismatch": 0}
     for job in jobs:
         if not job.ok:
             continue
-        got = reference.compare(catalogue, job.vcf, job.counts, ref_cols,
-                                g["min_support"], g["err"])
+        got = ref.compare(catalogue, job.vcf, job.counts, ref_cols,
+                          g["min_support"], g["err"])
         for k in worst:
             worst[k] = max(worst[k], got[k])
     failed = sum(not j.ok for j in jobs)

@@ -6,7 +6,7 @@ import pytest
 
 from conftest import TINY_CONFIG, TINY_MIX
 
-from benchmark import calibrate, cells, gen, reference
+from benchmark import calibrate, cells, reference
 
 
 @pytest.mark.parametrize("seed", [1, 2, 2**31 + 3])
@@ -15,21 +15,22 @@ def test_control_is_not_correct(tmp_path, seed):
     cell.config.update(TINY_CONFIG, n_svs=30, genome_bp=250_000)
     cell.mix.update(TINY_MIX)
     g = cell.config["guarantees"]
-    cat = gen.make_catalogue(cell.config, seed)
+    cat = cell.gen.make_catalogue(cell.config, seed)
     cat.write_vcf(tmp_path / "c.vcf")
     vcf = (tmp_path / "c.vcf").read_text()
-    sample = gen.make_sample(cat, cell.mix, seed, tmp_path / "s.fastq")
-    got = calibrate.control_numbers(cat, sample, vcf, g)
+    sample = cell.gen.make_sample(cat, cell.mix, seed, tmp_path / "s.fastq")
+    got = calibrate.control_numbers(cell, cat, sample, vcf)
     assert got["ad_gap"] > cell.limits["ad_gap"]
     assert got["model_mismatch"] > cell.limits["model_mismatch"]
 
-    truth = reference.truth_counts(cat, sample, g["d_over"])
-    table = reference.reference_counts(vcf, truth)
-    cols = reference.expected_columns(vcf, table, g["min_support"], g["err"])
+    ref = cell.reference
+    truth = ref.truth_counts(cat, sample, g["d_over"])
+    table = ref.reference_counts(vcf, truth)
+    cols = ref.expected_columns(vcf, table, g["min_support"], g["err"])
     own = "\n".join("\t".join(f[:8] + ["GT:DP:AD:PL", c]) for f, c in
-                    zip(reference.vcf_records(vcf), cols))
-    assert reference.compare(vcf, own, table, cols, g["min_support"],
-                             g["err"]) == {"ad_gap": 0.0, "model_mismatch": 0}
+                    zip(ref.vcf_records(vcf), cols))
+    assert ref.compare(vcf, own, table, cols, g["min_support"],
+                       g["err"]) == {"ad_gap": 0.0, "model_mismatch": 0}
 
 
 def test_model_agrees_with_the_programs_writer(tmp_path):

@@ -1,7 +1,11 @@
 """The frozen generator: fixed by the seed, the same work for every seed,
-and the reference's counts from its origins."""
+the default configuration's inputs pinned byte for byte, and the
+reference's counts from its origins."""
+
+import hashlib
 
 import numpy as np
+import pytest
 
 from benchmark import gen, reference
 
@@ -83,3 +87,26 @@ def test_truth_counts_by_brute_force(tmp_path):
                 if j - s >= 100 and e - j >= 100:
                     want[sv, allele] += 1
     assert np.array_equal(reference.truth_counts(cat, sample, 100), want)
+
+
+#: sha256 of the catalogue VCF and of the FASTQ that the tiny cell's
+#: generator writes, taken with the generator as it was before
+#: configurations could name their own; the default must not move them.
+TINY_DIGESTS = {
+    7: ("c5001c729f1922bf8e686fb1271ac9b12041b0364cbf814e590989c3410ee044",
+        "5b0abd73ddb6ed55deb893ae9a4c81ba849563c06418593d8a7493b535c7aa75"),
+    2**31 + 11: (
+        "402d2d166e07877121798f5718d5ff5161bf745d7d23706be6350a654eec63c9",
+        "1d17b704504d76e9cafd4a9841c974e892cdc7c42b14875b7f36fc54329e1cca"),
+}
+
+
+@pytest.mark.parametrize("seed", sorted(TINY_DIGESTS))
+def test_default_generator_inputs_are_pinned(tiny_cell, tmp_path, seed):
+    assert tiny_cell.gen is gen
+    cat = tiny_cell.gen.make_catalogue(tiny_cell.config, seed)
+    cat.write_vcf(tmp_path / "c.vcf")
+    tiny_cell.gen.make_sample(cat, tiny_cell.mix, seed, tmp_path / "s.fastq")
+    got = tuple(hashlib.sha256((tmp_path / f).read_bytes()).hexdigest()
+                for f in ("c.vcf", "s.fastq"))
+    assert got == TINY_DIGESTS[seed]

@@ -1,5 +1,6 @@
 """No JAX and no JAX package: the check by whole top-level names, and the
-reference's and the harness's own imports."""
+imports of the harness and of every generator and reference that a
+configuration names."""
 
 import ast
 import subprocess
@@ -31,8 +32,25 @@ def imported_names(path):
     return names
 
 
+def configuration_modules():
+    """The module files that the configurations name as generator or
+    reference, given or defaulted."""
+    import json
+
+    from benchmark import cells
+
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    stems = set()
+    for c in bench["configs"]:
+        cfg = json.loads((ROOT / c["file"]).read_text())
+        stems |= {cfg.get(k, d) for k, d in cells.DEFAULT_MODULES.items()}
+    return sorted(f"{stem}.py" for stem in stems)
+
+
 def test_reference_imports_neither_jax_nor_either_package():
-    for name in ("reference.py", "gen.py"):
+    files = configuration_modules()
+    assert {"reference.py", "gen.py"} <= set(files)
+    for name in files:
         names = imported_names(ROOT / "benchmark" / name)
         assert not names & {"jax", "jaxlib", "flax", "svjedi_tpu",
                             "svjedi_tpu_torch"}, name
@@ -42,7 +60,8 @@ def test_harness_never_loads_jax():
     for path in (ROOT / "benchmark").rglob("*.py"):
         assert not imported_names(path) & {"jax", "jaxlib", "flax",
                                            "svjedi_tpu"}, path
-    code = ("from benchmark import run, calibrate, reference, gen; "
+    modules = ", ".join(f[:-3] for f in configuration_modules())
+    code = (f"from benchmark import run, calibrate, {modules}; "
             "import svjedi_tpu_torch.align.pipeline, "
             "svjedi_tpu_torch.genotype.vcf_writer; "
             "print(run.forbidden_modules())")
