@@ -22,6 +22,7 @@ hold to the verbatim :func:`count_support`.
 from __future__ import annotations
 
 import os
+import re
 import sys
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -307,11 +308,17 @@ class ChunkDispatch:
     block_score: Optional[np.ndarray] = None
     #: work handed to the device: the forward pass's kept windows and their
     #: rows, Σ m (set by dispatch_chunk); the reverse pass's winners without
-    #: a start and their rows, Σ (qe + 1) (set by dispatch_rev)
+    #: a start and their rows, Σ (qe + 1) (set by dispatch_rev); of those
+    #: rows, the ones on panel paths that own an INV or BND link
     dp_problems: int = 0
     dp_rows: int = 0
     rev_problems: int = 0
     rev_rows: int = 0
+    dp_rows_inv_bnd: int = 0
+    rev_rows_inv_bnd: int = 0
+    #: per panel path, whether it owns an INV or BND link
+    #: (:attr:`CountTable.path_inv_bnd`, set by dispatch_chunk)
+    path_inv_bnd: Optional[np.ndarray] = None
 
 
 # Copied verbatim from svjedi_tpu/align/pipeline.py:candidate_layout.
@@ -399,6 +406,9 @@ def dispatch_chunk(
     order = np.flatnonzero(keep)
     disp.dp_problems = len(order)
     disp.dp_rows = int(m32[order].sum(dtype=np.int64))
+    disp.path_inv_bnd = count_table(panel).path_inv_bnd
+    disp.dp_rows_inv_bnd = int(m32[order][
+        disp.path_inv_bnd[cands.path[order]]].sum(dtype=np.int64))
     bucket_of = np.array(
         [_pick_bucket(int(v), cfg.buckets) for v in m32[order]],
         dtype=np.int64,
@@ -734,6 +744,8 @@ def dispatch_rev(
     ci = win[need]
     disp.rev_problems = len(need)
     disp.rev_rows = int((disp.qe_win[ci] + 1).sum(dtype=np.int64))
+    on = disp.path_inv_bnd[disp.cands.path[ci]]
+    disp.rev_rows_inv_bnd = int((disp.qe_win[ci][on] + 1).sum(dtype=np.int64))
     # Rebucket by the CLAMPED window length m' = qe+1 (the real aligned
     # span), not the forward bucket.
     buckets = np.array(
@@ -1238,6 +1250,19 @@ def _audit_line(panel: Panel, w: Winners, reads: ReadSet, i: int) -> str:
     ) + "\t"
 
 
+#: SV types of the count table's tags (:attr:`CountTable.tag_kind` codes),
+#: then the code of a tag of none of them.
+SV_KINDS = ("DEL", "INS", "INV", "BND")
+_KIND_OF_TAG = re.compile(r":(DEL|INS|INV|BND)-")
+
+
+def tag_kind(tag: str) -> int:
+    """The :data:`SV_KINDS` code of a count-table tag ``{chrom}:{sv_id}``
+    (the type that begins its sv id), or ``len(SV_KINDS)``."""
+    m = _KIND_OF_TAG.search(tag)
+    return SV_KINDS.index(m.group(1)) if m else len(SV_KINDS)
+
+
 @dataclass
 class CountTable:
     """A panel's owned links, flattened once for :func:`count_support_flat`.
@@ -1246,7 +1271,10 @@ class CountTable:
     walk order): tag id (into ``tag_names``), allele, junction offset and
     link index. ``head[p]`` is the audit line's oriented node walk and the
     path's untrimmed length, tab-joined; ``trim_left[p]`` rebases its
-    target coordinates.
+    target coordinates. ``tag_kind[t]`` is tag ``t``'s SV type
+    (:func:`tag_kind`); ``path_inv_bnd[p]`` whether path ``p`` owns an INV
+    or BND link, ``path_cross_chrom[p]`` whether its walk holds nodes of
+    two chromosomes.
     """
 
     offsets: np.ndarray
@@ -1257,6 +1285,9 @@ class CountTable:
     tag_names: List[str]
     head: np.ndarray
     trim_left: np.ndarray
+    tag_kind: np.ndarray
+    path_inv_bnd: np.ndarray
+    path_cross_chrom: np.ndarray
 
 
 def count_table(panel: Panel) -> CountTable:
@@ -1287,11 +1318,21 @@ def _build_count_table(panel: Panel) -> CountTable:
                 for (n, s) in path.states) + f"\t{path.full_len}"
         for path in panel.paths
     ]
+    kinds = np.array([tag_kind(t) for t in tag_ids], dtype=np.int64)
+    inv_bnd = np.isin(kinds[flat[:, 0]], [SV_KINDS.index("INV"),
+                                          SV_KINDS.index("BND")])
+    path_inv_bnd = np.zeros(len(panel.paths), dtype=bool)
+    path_inv_bnd[np.repeat(np.arange(len(panel.paths)),
+                           np.diff(offsets))[inv_bnd]] = True
     return CountTable(
         offsets=offsets, tag=flat[:, 0], allele=flat[:, 1],
         junction=flat[:, 2], link=flat[:, 3], tag_names=list(tag_ids),
         head=head,
         trim_left=np.array([p.trim_left for p in panel.paths], dtype=np.int64),
+        tag_kind=kinds, path_inv_bnd=path_inv_bnd,
+        path_cross_chrom=np.array(
+            [len({nodes[n].chrom for n, _ in path.states}) > 1
+             for path in panel.paths], dtype=bool),
     )
 
 
@@ -1317,12 +1358,15 @@ def count_support_flat(
 
     ``timings`` (a dict, or None) gains ``count_entries`` (winner × owned
     entries tested), ``count_crossings`` (crossings counted: the sum of the
-    counts) and ``audit_line_rows`` (audit lines formatted).
+    counts), of those ``count_crossings_inv`` and ``count_crossings_bnd``
+    (on links owned by INV or BND records), and ``audit_line_rows`` (audit
+    lines formatted).
     """
     counts: Dict[str, List[int]] = {}
     audit: Dict[str, List[List[str]]] = {}
     if timings is not None:
-        for key in ("count_entries", "count_crossings", "audit_line_rows"):
+        for key in ("count_entries", "count_crossings", "count_crossings_inv",
+                    "count_crossings_bnd", "audit_line_rows"):
             timings.setdefault(key, 0)
     table = count_table(panel)
     rows = np.arange(len(winners.read))
@@ -1370,6 +1414,9 @@ def count_support_flat(
     kept = first[np.argsort(seg[first], kind="stable")]
     row, tag, allele = row[kept], tag[kept], allele[kept]
     add(timings, "count_crossings", len(row))
+    by_kind = np.bincount(table.tag_kind[tag], minlength=len(SV_KINDS) + 1)
+    add(timings, "count_crossings_inv", by_kind[SV_KINDS.index("INV")])
+    add(timings, "count_crossings_bnd", by_kind[SV_KINDS.index("BND")])
 
     tag_order = tag[np.sort(np.unique(tag, return_index=True)[1])].tolist()
     per_tag = np.bincount(tag * 2 + allele, minlength=2 * n_tags).reshape(-1, 2)
@@ -1481,22 +1528,29 @@ LOOP_SPANS = (
 #: audit's ``audit_table_s``, ``audit_assembly_s`` and ``audit_dp_s``, and
 #: ``count_support_s`` in ``count_s``; and the seeder thread's
 #: ``seed_cpu_s`` (its wall time per chunk) with ``scan_wait_s`` (the wait
-#: for the device scan's bitmask) inside it.
+#: for the device scan's bitmask) and ``decoy_s`` (the decoy's
+#: suppression of the chunk's candidates) inside it.
 NESTED_SPANS = (
     "finalize_s", "prune_s", "audit_table_s", "audit_assembly_s",
     "audit_dp_s", "count_support_s", "seed_cpu_s", "scan_wait_s",
+    "decoy_s",
 )
 #: Work handed to each step: chunks pulled, candidates seeded, winners
 #: counted; the forward DP's kept windows and Σ m, the reverse pass's
 #: winners and Σ (qe + 1), the audit's pieces and Σ rows; the device
-#: scan's positions (n_codes − k + 1), bases and read-offset entries; and
-#: the count's winner × owned entries, crossings counted and audit lines
-#: formatted (:func:`count_support_flat`).
+#: scan's positions (n_codes − k + 1), bases and read-offset entries; the
+#: count's winner × owned entries, crossings counted and audit lines
+#: formatted (:func:`count_support_flat`); and the all-types work: panel
+#: candidates the decoy removed, crossings counted on INV and on BND links,
+#: the forward and reverse DP rows on paths that own an INV or BND link,
+#: and winners on paths whose walk spans two chromosomes.
 WORK_COUNTERS = (
     "n_chunks", "n_candidates", "n_winners", "dp_problems", "dp_rows",
     "rev_problems", "rev_rows", "audit_pieces", "audit_rows",
     "scan_positions", "scan_codes", "scan_offsets", "count_entries",
-    "count_crossings", "audit_line_rows",
+    "count_crossings", "audit_line_rows", "decoy_suppressed",
+    "count_crossings_inv", "count_crossings_bnd", "dp_rows_inv_bnd",
+    "rev_rows_inv_bnd", "winners_cross_chrom",
 )
 
 
@@ -1615,13 +1669,15 @@ def align_and_count(
         winner_parts.append(winners)
         if timings is not None:
             timings["n_winners"] += int(len(winners.read))
+            add(timings, "winners_cross_chrom", count_table(
+                panel).path_cross_chrom[winners.path].sum())
 
     def process_one(start, chunk, disp):
         """Full single-chunk path (the per-chunk retry unit)."""
         (host_rows,) = collect_outs([disp])
         winners, win = finalize_chunk(chunk, index, align_cfg, disp, host_rows)
         dispatch_rev(align_cfg, disp, winners, win)
-        count_work(disp, "rev_problems", "rev_rows")
+        count_work(disp, "rev_problems", "rev_rows", "rev_rows_inv_bnd")
         (rev_rows,) = collect_rev([disp])
         patch_rev(align_cfg, disp, winners, rev_rows)
         accumulate(start, chunk, disp, winners)
@@ -1644,7 +1700,8 @@ def align_and_count(
                         chunk, panel, index, disp.cands, align_cfg,
                         device_data, batch_size=batch_size, engine=engine,
                     )
-                    count_work(d2, "dp_problems", "dp_rows")
+                    count_work(d2, "dp_problems", "dp_rows",
+                               "dp_rows_inv_bnd")
                     process_one(start, chunk, d2)
                     break
                 except Exception:
@@ -1682,7 +1739,8 @@ def align_and_count(
                         chunk, index, align_cfg, disp, host_rows
                     )
                 dispatch_rev(align_cfg, disp, winners, win)
-                count_work(disp, "rev_problems", "rev_rows")
+                count_work(disp, "rev_problems", "rev_rows",
+                           "rev_rows_inv_bnd")
                 finalized.append(winners)
         with span(timings, "rev_exec_s", "align.fetch_rev"):
             rev_rows_all = collect_rev([d for (_, _, d) in pending])
@@ -1713,9 +1771,10 @@ def align_and_count(
         Host lookup and chaining, after the host scan or (``scan_out``, the
         device scan's pending bitmask) one wait for the bitmask's copy; no
         device call. Returns (candidates, {"seed_cpu_s": the call's seconds,
-        "scan_wait_s": the wait's}).
+        "scan_wait_s": the wait's, "decoy_s": the decoy's,
+        "decoy_suppressed": the panel candidates it removed}).
         """
-        spent: Dict[str, float] = {}
+        spent: Dict[str, float] = {}  # and the count decoy_suppressed
         with span(spent, "seed_cpu_s", "align.seed"):
             bits = None
             if scan_out is not None:
@@ -1732,30 +1791,34 @@ def align_and_count(
                 bits=bits,
             )
             if decoy is not None and len(cands):
-                if sharded_decoy:
-                    from ..dist.decoy_shard import (
-                        suppress_candidates_sharded,
-                    )
+                with span(spent, "decoy_s", "align.seed.decoy"):
+                    if sharded_decoy:
+                        from ..dist.decoy_shard import (
+                            suppress_candidates_sharded,
+                        )
 
-                    keep, dec_other, dec_same = suppress_candidates_sharded(
-                        chunk, cands, index, list(decoy), chain_params,
-                        threads=align_cfg.threads,
-                    )
-                else:
-                    from .decoy import suppress_candidates
+                        keep, dec_other, dec_same = (
+                            suppress_candidates_sharded(
+                                chunk, cands, index, list(decoy),
+                                chain_params, threads=align_cfg.threads,
+                            ))
+                    else:
+                        from .decoy import suppress_candidates
 
-                    is_panel = cands.path < n_panel_paths
-                    dec = cands.take(~is_panel, path_offset=-n_panel_paths)
-                    cands = cands.take(is_panel)
-                    keep, dec_other, dec_same = suppress_candidates(
-                        chunk, cands, index, decoy, chain_params,
-                        threads=align_cfg.threads, dec=dec,
-                        return_margins=True,
-                    )
-                cands.dec_other = dec_other
-                cands.dec_same = dec_same
-                if not keep.all():
-                    cands = cands.take(keep)
+                        is_panel = cands.path < n_panel_paths
+                        dec = cands.take(~is_panel,
+                                         path_offset=-n_panel_paths)
+                        cands = cands.take(is_panel)
+                        keep, dec_other, dec_same = suppress_candidates(
+                            chunk, cands, index, decoy, chain_params,
+                            threads=align_cfg.threads, dec=dec,
+                            return_margins=True,
+                        )
+                    cands.dec_other = dec_other
+                    cands.dec_same = dec_same
+                    spent["decoy_suppressed"] = int((~keep).sum())
+                    if not keep.all():
+                        cands = cands.take(keep)
         return cands, spent
 
     # Chunk pipeline: while chunk i's DP batches execute on the device, the
@@ -1832,10 +1895,10 @@ def align_and_count(
                     chunk, panel, index, cands, align_cfg, device_data,
                     batch_size=batch_size, engine=engine,
                 )
-            count_work(disp, "dp_problems", "dp_rows")
+            count_work(disp, "dp_problems", "dp_rows", "dp_rows_inv_bnd")
             if timings is not None:
-                for key, seconds in spent.items():
-                    timings[key] += seconds
+                for key, amount in spent.items():
+                    timings[key] += amount
                 timings["n_candidates"] += len(cands)
             pending.append((start, chunk, disp))
             pending_bytes[0] += _chunk_device_bytes(chunk.codes.size)

@@ -35,8 +35,9 @@ OWNED = [
 
 
 def _panel(owned=OWNED):
-    graph = SimpleNamespace(nodes=[SimpleNamespace(name=f"s{i}")
-                                   for i in range(12)])
+    graph = SimpleNamespace(nodes=[
+        SimpleNamespace(name=f"s{i}", chrom="c" if i < 6 else "d")
+        for i in range(12)])
     paths = [
         PanelPath(cluster_id=p, states=[(p, FWD), (p + 5, REV), (11, FWD)],
                   seq=np.zeros(2000, np.int8), owned=list(own),
@@ -230,3 +231,7 @@ def test_count_table_flattens_owned_in_walk_order():
         table.link.tolist())] == [o for own in OWNED for o in own]
     assert table.head[2] == ">s2<s7>s11\t2102"
     assert table.trim_left.tolist() == [0, 7, 14, 21, 28]
+    # Tags of no SV type, so no path owns an INV or BND link; path 0's walk
+    # (s0, s5, s11) holds nodes of chromosomes c and d, as every path's.
+    assert table.tag_kind.tolist() == [len(tpipe.SV_KINDS)] * 4
+    assert not table.path_inv_bnd.any() and table.path_cross_chrom.all()

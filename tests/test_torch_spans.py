@@ -36,6 +36,12 @@ OLD_KEYS = ("seed_s", "seed_cpu_s", "dp_s", "fwd_exec_s", "rev_disp_s",
             "n_candidates", "n_winners")
 #: The counting step's work counters.
 COUNT_COUNTERS = ("count_entries", "count_crossings", "audit_line_rows")
+#: The counters of INV and BND work and of paths across chromosomes, none of
+#: which this job's one-chromosome DEL/INS catalogue has; and the decoy's
+#: removals, which it may lack.
+ALLTYPES_COUNTERS = ("count_crossings_inv", "count_crossings_bnd",
+                     "dp_rows_inv_bnd", "rev_rows_inv_bnd",
+                     "winners_cross_chrom")
 #: The metrics this change adds, each with the key it reads.
 NEW_METRICS = {
     "merge_index_ms_per_job": "merge_index_s",
@@ -168,7 +174,12 @@ def test_job_writes_every_key(job):
     for key in tpipe.LOOP_SPANS + tpipe.NESTED_SPANS:
         assert t[key] > 0, key
     for key in tpipe.WORK_COUNTERS:
-        assert type(t[key]) is int and t[key] > 0, key
+        assert type(t[key]) is int, key
+        if key in ALLTYPES_COUNTERS:
+            assert t[key] == 0, key
+        elif key != "decoy_suppressed":
+            assert t[key] > 0, key
+    assert t["decoy_suppressed"] >= 0
 
 
 def test_nested_spans_fit_in_their_parents(job):
@@ -176,7 +187,7 @@ def test_nested_spans_fit_in_their_parents(job):
     assert t["finalize_s"] <= t["rev_disp_s"]
     assert (t["prune_s"] + t["count_support_s"] + t["audit_table_s"]
             + t["audit_assembly_s"] + t["audit_dp_s"]) <= t["count_s"]
-    assert t["scan_wait_s"] <= t["seed_cpu_s"]
+    assert t["scan_wait_s"] + t["decoy_s"] <= t["seed_cpu_s"]
     assert sum(t[k] for k in tpipe.LOOP_SPANS) <= job.wall
 
 
