@@ -13,8 +13,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    stats DP, the gather engine's DP and the minimizer scan), prints
    ptxas's registers and
    spills for each build (or that the library was cached) and the DPX
-   instructions in the SASS of K1/K1' (8 builds), K3 (4), K4 (4) and A1
-   (6) and G1 (6); fails if a K1/K1' build or a narrow K3, K4, A1 or G1
+   instructions in the SASS of K1/K1' (8 builds), K3 (4), K4 (4), A1
+   (12: 6 pre-gathered, 6 fused fetch) and G1 (6); fails if a K1/K1' build or a narrow K3, K4, A1 or G1
    build has no DPX add-max (VIADDMNMX).
 2. Kernel vs plain: the band_dp_v3 kernel (K1) against its plain PyTorch
    version on the same CUDA tensors, exactly, at every bucket of
@@ -79,18 +79,23 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    and the per-cell rule tell apart; at bucket 2048 also a zero gap open
    and a positive mismatch (every row runs) and the wide build (mismatch
    -200). Then ``compute_winner_stats`` on the winners of one production
-   chunk (16,384 reads of the 10 Mb bundle) with A1 and with the plain
-   version on the card: matches, blocklen, rescore_deficit and
-   rescore_flag equal; both times and the host assembly's share. At the
-   production shape (that chunk's bucket-2048 pieces: its first 4,096 and
-   the whole bucket, band 256) times A1 and the plain version, with the
-   bound.
+   chunk (16,384 reads of the 10 Mb bundle) on the card three ways: fused
+   (the chunk's uploaded buffers given: A1's fused-fetch entry,
+   ``band_dp_stats_flat``, fetches every piece), on host-built windows
+   with A1 and with the plain version: matches, blocklen, rescore_deficit
+   and rescore_flag equal; each path's time and split. The fused entry on
+   that chunk's pieces of every bucket, exactly against the plain version
+   on ``gather_windows``' windows, at bands 256 and 512, narrow and wide
+   (mismatch -200). At the production shape (that chunk's bucket-2048
+   pieces: its first 4,096 and the whole bucket, band 256) times A1, the
+   fused entry on the whole bucket and the plain version, with the bound.
 3. Main path: runs ``python -m svjedi_tpu_torch run`` on the simulated
    bundle as a subprocess (the card, the v3 engine, with ``--gaf``). It
    must exit 0, genotype at accuracy 100.0, launch the forward and the
-   reverse kernel and the audit's stats kernel (A1), seed from the device scan with one scan launch per
-   chunk, load the port's own native library, and print none of the
-   aligner's fault warnings.
+   reverse kernel and the audit's stats kernel (A1, every audit piece
+   fetched by its fused entry), seed from the device scan with one scan
+   launch per chunk, load the port's own native library, and print none
+   of the aligner's fault warnings.
 4. One-pass path: ``run_pipeline(..., engine="dma")`` in this process on
    phase 3's files, gated like phase 3, with band_dp_dma launches > 0,
    band_dp_v3 launches == 0 and A1 launches > 0; prints its align stage, reads/s, peak device
@@ -174,9 +179,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    the host-scan path are printed.
 
 Every phase prints its seconds. The kernels' launches in the JSON record
-are those of one path's run each: phase 3 (`run`) for K1, K1', D1 and A1,
-phase 4 for K3, phase 2c for K4, phase 4b for G1; log lines give the
-other paths', phases 8, 9 and 10 included.
+are those of one path's run each: phase 3 (`run`) for K1, K1', D1 and A1's
+fused-fetch entry, phase 4 for K3, phase 2c for K4, phase 4b for G1, phase
+2e's host-path audit for A1's pre-gathered entry; log lines give the other
+paths', phases 8, 9 and 10 included.
 
 Everything runs through ``svjedi_tpu_torch``; nothing of JAX or of the JAX
 package is imported. The second-to-last line is the kernels' JSON record;
@@ -236,13 +242,16 @@ DPX_OPCODES = ("VIADDMNMX", "VIMNMX3", "VIMNMX")
 #: (kernel name in the SASS, number of builds, regex of the builds that must
 #: use VIADDMNMX). K1 and K1': forward and reverse x narrow and wide x band
 #: 128 and 256; K3 and K4: narrow and wide x band 128 and 256, the narrow
-#: builds (template flag kWide = false, mangled "Lb0E") checked; A1 and G1:
-#: narrow and wide x band 128, 256 and 512.
+#: builds (template flag kWide = false, mangled "Lb0E") checked; G1: narrow
+#: and wide x band 128, 256 and 512; A1 likewise in each of its two entries,
+#: pre-gathered (band_dp_stats_kernel) and fused fetch
+#: (band_dp_stats_kernel_flat).
 DPX_CHECKS = (
     ("band_dp_v3_kernel", 8, r"."),
     ("band_dp_dma_kernel", 4, r"band_dp_dma_kernelILi\d+ELb0E"),
     ("band_dp_onepass_kernel", 4, r"band_dp_onepass_kernelILi\d+ELb0E"),
-    ("band_dp_stats_kernel", 6, r"band_dp_stats_kernelILi\d+ELi\d+ELb0E"),
+    ("band_dp_stats_kernel", 12,
+     r"band_dp_stats_kernel(_flat)?ILi\d+ELi\d+ELb0E"),
     ("band_dp_gather_kernel", 6, r"band_dp_gather_kernelILi\d+ELi\d+ELb0E"),
 )
 
@@ -657,17 +666,25 @@ def check_device_scan(counters, n_reads: int, what: str) -> int:
 
 
 def check_stats_launches(counters, what: str) -> int:
-    """The run's audit must have gone through the stats kernel (A1);
+    """The run's audit must have gone through the stats kernel (A1), its
+    fused-fetch entry fetching every piece from the chunk's buffers;
     returns its launches."""
     launches = int(counters.get("band_dp_stats_launches", 0))
     if launches <= 0:
         fail(f"{what} launched the band_dp_stats kernel no time")
+    pieces = counters.get("audit_pieces")
+    fetched = counters.get("audit_pieces_fetched")
+    if not pieces or fetched != pieces:
+        fail(f"{what}: A1 fetched {fetched} of {pieces} audit pieces from "
+             f"the chunk's buffers, not all")
     return launches
 
 
 def audit_split(counters, launches: int) -> str:
-    return (f"audit: band_dp_stats launches {launches}, host piece assembly "
-            f"{counters.get('audit_assembly_s')} s, stats DP to host "
+    return (f"audit: band_dp_stats launches {launches}, pieces "
+            f"{counters.get('audit_pieces')} (fetched on the card "
+            f"{counters.get('audit_pieces_fetched')}), piece offsets' "
+            f"upload {counters.get('audit_assembly_s')} s, stats DP to host "
             f"{counters.get('audit_dp_s')} s")
 
 
@@ -1193,6 +1210,7 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
     on edge cases and on one production chunk's audit; times it."""
     import torch
 
+    from svjedi_tpu_torch.align import device as tdev
     from svjedi_tpu_torch.align import pipeline as apipe
     from svjedi_tpu_torch.align.extend import DPParams
     from svjedi_tpu_torch.config import AlignConfig, GenotypeConfig
@@ -1241,8 +1259,7 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
             f"exact{extra} ({time.perf_counter() - t0:.1f} s)")
 
     # One production chunk's audit (the run's second chunk, 16,384 reads):
-    # its winners, then compute_winner_stats with A1 and with the plain
-    # version, each on the card.
+    # its winners, then compute_winner_stats on the card three ways.
     cfg = AlignConfig()
     t0 = time.perf_counter()
     reads = read_reads(str(paths["reads"]))
@@ -1255,46 +1272,109 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
     log(f"[stats] production chunk: {chunk.n_reads} reads, "
         f"{len(winners.read)} winners ({time.perf_counter() - t0:.1f} s)")
     pieces = {}
+    flat = {}
 
     def kernel_dp(q, t, band, params):
         pieces[q.shape[1]] = (q, t)
         return a1.band_dp_stats(q, t, band, params)
 
+    def fused_dp(reads2, panel_padded, cols, bucket, band, params):
+        flat[bucket] = cols
+        return band_dp_stats_flat(reads2, panel_padded, cols, bucket, band,
+                                  params)
+
+    # The fused path: A1 fetches every piece from the chunk's buffers, as
+    # align_and_count runs it; then the host path with A1 and with the
+    # plain version.
+    dd = tdev.upload(chunk.codes, genome["panel"], dev)
+    band_dp_stats_flat = a1.band_dp_stats_flat
     runs = {}
-    for name, dp in (("kernel", kernel_dp), ("plain", a1.band_dp_stats_ref)):
+    for name, dp in (("fused", None), ("kernel", kernel_dp),
+                     ("plain", a1.band_dp_stats_ref)):
         timings = {}
+        launches0 = a1.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        apipe.compute_winner_stats(chunk, genome["panel"], winners, cfg, dev,
-                                   dp=dp, timings=timings)
+        a1.band_dp_stats_flat = fused_dp
+        try:
+            apipe.compute_winner_stats(
+                chunk, genome["panel"], winners, cfg, dev, dp=dp,
+                timings=timings, device_data=dd if dp is None else None)
+        finally:
+            a1.band_dp_stats_flat = band_dp_stats_flat
         torch.cuda.synchronize()
         runs[name] = (time.perf_counter() - t0, timings,
-                      {f: getattr(winners, f).copy() for f in AUDIT_FIELDS})
-    for f in AUDIT_FIELDS:
-        if not np.array_equal(runs["kernel"][2][f], runs["plain"][2][f]):
-            fail(f"compute_winner_stats with the stats kernel differs from "
-                 f"the plain version in {f}")
+                      {f: getattr(winners, f).copy() for f in AUDIT_FIELDS},
+                      a1.launches - launches0)
+    if runs["fused"][1]["audit_pieces_fetched"] != \
+            runs["fused"][1]["audit_pieces"]:
+        fail("compute_winner_stats with the chunk's buffers fetched "
+             f"{runs['fused'][1]['audit_pieces_fetched']} of "
+             f"{runs['fused'][1]['audit_pieces']} pieces on the card")
+    for name in ("fused", "kernel"):
+        for f in AUDIT_FIELDS:
+            if not np.array_equal(runs[name][2][f], runs["plain"][2][f]):
+                fail(f"compute_winner_stats with the {name} stats kernel "
+                     f"differs from the plain version in {f}")
     sizes = ", ".join(f"bucket {m}: {q.shape[0]}"
                       for m, (q, _) in sorted(pieces.items()))
-    for name, (secs, tm, _) in runs.items():
-        log(f"[stats] compute_winner_stats with the {name} DP: {secs:.3f} s, "
-            f"of which host piece assembly {tm['audit_assembly_s']:.3f} s "
+    for name, (secs, tm, _, n_launch) in runs.items():
+        log(f"[stats] compute_winner_stats, {name} path: {secs:.3f} s, of "
+            f"which table {tm['audit_table_s']:.3f} s, assembly "
+            f"{tm['audit_assembly_s']:.3f} s "
             f"({100 * tm['audit_assembly_s'] / secs:.1f}%), DP calls to "
-            f"their host results {tm['audit_dp_s']:.3f} s")
+            f"their host results {tm['audit_dp_s']:.3f} s; A1 launches "
+            f"{n_launch}")
     log(f"[stats] production chunk: matches, blocklen, rescore_deficit, "
-        f"rescore_flag equal with the kernel and the plain version; pieces "
-        f"per bucket {sizes}; flagged {int(runs['kernel'][2]['rescore_flag'].sum())}")
+        f"rescore_flag equal on the fused path, with the kernel and with the "
+        f"plain version; pieces per bucket {sizes}; flagged "
+        f"{int(runs['kernel'][2]['rescore_flag'].sum())}")
+
+    # The fused-fetch entry on the same production pieces, exactly against
+    # the plain version on gathered windows: bands 256 and 512, narrow and
+    # wide (mismatch -200).
+    for bucket, cols in sorted(flat.items()):
+        q_start, t_start, m, t_lo, t_hi = cols
+        for band in (2 * cfg.band, 4 * cfg.band):
+            for p in (DPParams(), DPParams(mismatch=-200)):
+                got = band_dp_stats_flat(dd.reads2, dd.panel_padded, cols,
+                                         bucket, band, p)
+                q, t = tdev.gather_windows(dd.reads2, dd.panel_padded,
+                                           q_start, m, t_start, t_lo, t_hi,
+                                           bucket, band)
+                ref = a1.band_dp_stats_ref(q, t, band, p)
+                torch.cuda.synchronize()
+                for key in a1.STATS_COLS:
+                    e = int((got[key].to(torch.int64)
+                             - ref[key].to(torch.int64)).abs().max())
+                    max_err = max(max_err, e)
+                    if e != 0:
+                        fail(f"the fused-fetch stats kernel disagrees with "
+                             f"the plain version: {key}, bucket {bucket} "
+                             f"band {band} {p} (max abs err {e})")
+                n_cases += 1
+        log(f"[stats] fused fetch, production bucket {bucket} "
+            f"({cols.shape[1]} pieces): exact at bands {2 * cfg.band} and "
+            f"{4 * cfg.band}, narrow and wide")
 
     # The production shape: the chunk's bucket-2048 pieces, band 256, its
-    # first 4,096 (the JAX package's slice) and the whole bucket.
+    # first 4,096 (the JAX package's slice) and the whole bucket; the
+    # fused-fetch entry on the whole bucket's offsets.
     band = 2 * cfg.band
     q, t = pieces[max(pieces)]
+    cols = flat[max(flat)]
     times = {}
-    for label, qq, tt in (("4096", q[:4096], t[:4096]), ("bucket", q, t)):
-        compare(f"production {label}", qq, tt, band)
-        ms = cuda_time_ms(lambda: a1.band_dp_stats(qq, tt, band), reps=10)
+    for label, qq, tt in (("4096", q[:4096], t[:4096]), ("bucket", q, t),
+                          ("fused", q, t)):
+        if label == "fused":
+            run = lambda: band_dp_stats_flat(  # noqa: E731
+                dd.reads2, dd.panel_padded, cols, qq.shape[1], band)
+        else:
+            compare(f"production {label}", qq, tt, band)
+            run = lambda: a1.band_dp_stats(qq, tt, band)  # noqa: E731
+        ms = cuda_time_ms(run, reps=10)
         plain_ms = cuda_time_ms(lambda: a1.band_dp_stats_ref(qq, tt, band),
-                                reps=1, warm=True)
+                                reps=1, warm=label != "fused")
         # Bound: the rows each piece needs (to its last read code other
         # than the sentinel), each input byte once, 32 bytes out each.
         coded = qq != 4
@@ -1305,17 +1385,22 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
         n_bytes = need + (need + band * qq.shape[0]) + 32 * qq.shape[0]
         bms, by = bound_ms(cells, OPS_PER_CELL["stats"], n_bytes, peak_ops)
         times[label] = (ms, plain_ms, bms, by)
-        log(f"[stats] band_dp_stats P {qq.shape[0]} bucket {qq.shape[1]} band "
+        name = ("band_dp_stats_flat" if label == "fused"
+                else "band_dp_stats")
+        log(f"[stats] {name} P {qq.shape[0]} bucket {qq.shape[1]} band "
             f"{band}: kernel {ms:.3f} ms ({cells / ms / 1e6:.2f} Gcell/s), "
             f"plain {plain_ms:.3f} ms; bound {bms:.3f} ms by {by} "
             f"({cells / 1e9:.3f} Gcell x {OPS_PER_CELL['stats']} ops), "
             f"{100 * bms / ms:.1f}% of bound")
     log(f"[stats] {n_cases} exact comparisons, max abs err {max_err}")
-    ms, plain_ms, bms, by = times["bucket"]
-    del pieces, q, t, winners, chunk
+    del pieces, flat, q, t, cols, winners, chunk, dd
     torch.cuda.empty_cache()
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by}
+    return {name: {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": bms, "bound_by": by,
+                   "launches": runs[path][3]}
+            for name, path, (ms, plain_ms, bms, by) in (
+                ("gathered", "kernel", times["bucket"]),
+                ("flat", "fused", times["fused"]))}
 
 
 # ---- phase 4 ------------------------------------------------------------------
@@ -2155,6 +2240,7 @@ def mode_run(label: str, paths, prefix: Path, aligns: bool = True, **cfg_kw):
             fail(f"the {label} run recorded "
                  f"{counters.get('band_dp_stats_launches')} A1 launches, "
                  f"not {launches['A1']}")
+        check_stats_launches(counters, f"the {label} run")
     elif any(launches.values()):
         fail(f"the {label} run launched kernels: {launches}")
     align = (f"align stage {float(timings['align']):.2f} s "
@@ -2552,9 +2638,10 @@ def main() -> int:
         seed_d1 = timed("10", phase_seed_profile, paths, n_reads)
 
     # Each kernel's launches in the JSON line are those of its own path's
-    # run (K1, K1', D1 and A1: phase 3, `run`; K3: phase 4; K4: phase 2c;
-    # G1: phase 4b); the other paths' counts, each gated > 0 in its phase,
-    # are logged here.
+    # run (K1, K1', D1 and A1's fused-fetch entry: phase 3, `run`; K3:
+    # phase 4; K4: phase 2c; G1: phase 4b; A1's pre-gathered entry: phase
+    # 2e's host-path audit); the other paths' counts, each gated > 0 in its
+    # phase, are logged here.
     log(f"[kernels] launches of the other paths: K1 sharded step {step_fwd}, "
         f"--data-shards/--graph-shards run {run_fwd}; K1' {step_rev}, "
         f"{run_rev}; A1 dma path {stats4}, gather path {stats4b}, "
@@ -2622,9 +2709,16 @@ def main() -> int:
         "route": "cuda",
         "source": "svjedi_tpu_torch/kernels/csrc/band_dp_stats.cu",
         "replaces": "svjedi_tpu/align/extend.py:188",
-        "launches": stats3,
         "library_ms": None,
-        **stats_kern,
+        **stats_kern["gathered"],
+    }, {
+        "name": "band_dp_stats_flat",
+        "route": "cuda",
+        "source": "svjedi_tpu_torch/kernels/csrc/band_dp_stats.cu",
+        "replaces": "svjedi_tpu/align/extend.py:188",
+        "library_ms": None,
+        **stats_kern["flat"],
+        "launches": stats3,
     }, {
         "name": "band_dp_gather",
         "route": "cuda",

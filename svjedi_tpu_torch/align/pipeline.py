@@ -1066,6 +1066,60 @@ def count_support(
     return counts, audit
 
 
+def pick_buckets(m: np.ndarray, buckets: Sequence[int]) -> np.ndarray:
+    """:func:`_pick_bucket` of every element of ``m``: the first of the
+    ascending ``buckets`` that holds it, else the last."""
+    b = np.asarray(buckets, dtype=np.int64)
+    return b[np.minimum(np.searchsorted(b, m, side="left"), len(b) - 1)]
+
+
+def audit_piece_table(winners: Winners, block_rows: int, band: int):
+    """The audit's pieces, winner by winner in read order: each winner's
+    rows [qs, qe] cut into ``block_rows``-row pieces [a, b), and each
+    piece's target window start t0, the span diagonal interpolated to row a
+    less half the ``band``. Returns int64 (winner, a, b, t0) arrays; a
+    winner with no rows has no piece. ``np.rint`` of the float64 quotient
+    rounds half to even, as Python's ``round`` does, and every operand is
+    far below 2^53, so the table equals a per-piece loop's."""
+    qs = winners.qs.astype(np.int64)
+    qe = winners.qe.astype(np.int64)
+    ts = winners.ts.astype(np.int64)
+    rows = qe - qs + 1
+    tspan = winners.te.astype(np.int64) - ts + 1
+    n_pieces = np.where(rows > 0, (rows + block_rows - 1) // block_rows, 0)
+    p_win = np.repeat(np.arange(len(rows)), n_pieces)
+    first = np.cumsum(n_pieces) - n_pieces
+    off = (np.arange(len(p_win)) - first[p_win]) * block_rows
+    p_a = qs[p_win] + off
+    p_b = np.minimum(p_a + block_rows, qe[p_win] + 1)
+    t_a = ts[p_win] + np.rint(
+        off * tspan[p_win] / rows[p_win]).astype(np.int64)
+    return p_win, p_a, p_b, t_a - band // 2
+
+
+def _fused_pieces(reads: ReadSet, winners: Winners, device_data, p_win,
+                  p_a, p_b, p_t0) -> np.ndarray:
+    """The pieces' :data:`kernels.band_dp_stats.PIECE_ROWS` in the
+    coordinates of ``device_data``, as :func:`candidate_layout` computes
+    them: the oriented read's rows [a, b) in ``reads2`` (a reverse-strand
+    read in the reverse-complement half), the target window from t0 on the
+    winner's path in ``panel_padded``, valid in [max(ts, 0), min(te + 1,
+    path length)), where the host assembly clamps it."""
+    from ..kernels.band_dp_stats import pack_pieces
+
+    read = winners.read[p_win]
+    path = winners.path[p_win]
+    N = device_data.n_bases
+    q_start = np.where(winners.strand[p_win] == 0,
+                       reads.offsets[read] + p_a,
+                       N + (N - reads.offsets[read + 1]) + p_a)
+    path_start = device_data.panel_start[path]
+    t_lo = path_start + np.maximum(winners.ts[p_win], 0)
+    t_hi = path_start + np.minimum(winners.te[p_win] + 1,
+                                   device_data.panel_len[path])
+    return pack_pieces(q_start, path_start + p_t0, p_b - p_a, t_lo, t_hi)
+
+
 def compute_winner_stats(
     reads: ReadSet,
     panel: Panel,
@@ -1074,6 +1128,7 @@ def compute_winner_stats(
     device: torch.device,
     dp=None,
     timings: Optional[Dict] = None,
+    device_data=None,
 ) -> None:
     """Fill ``winners.matches``/``blocklen`` by re-scoring winning spans.
 
@@ -1088,15 +1143,27 @@ def compute_winner_stats(
     Each bucket's pieces go to the DP in one call (on a card the kernel A1
     then fills it; the JAX package cuts them into slices of 4,096). The
     pieces are independent and the sums integer, so the batching changes
-    no output. ``dp`` replaces the stats DP (default
-    :func:`extend.band_dp_stats_batch`); ``timings`` gains the seconds of
-    the piece table and bucket pick (``audit_table_s``), of the host's
-    piece assembly (``audit_assembly_s``) and of the DP calls up to their
-    results on the host (``audit_dp_s``), and the pieces and their rows
-    handed to the DP (``audit_pieces``, ``audit_rows``).
+    no output.
+
+    Where ``device_data`` (the chunk's :class:`device.DeviceData`, on
+    ``device``) is given and ``dp`` is not, the DP fetches each piece's
+    windows itself from the resident ``reads2`` and ``panel_padded``
+    (:func:`kernels.band_dp_stats.band_dp_stats_flat`): the host uploads
+    five int32 offsets a piece. Otherwise the host assembles the windows
+    and hands them to ``dp`` (default :func:`extend.band_dp_stats_batch`).
+    Both paths give the DP the same windows, so the same output.
+
+    ``timings`` gains the seconds of the piece table and bucket pick
+    (``audit_table_s``), of each bucket's windows or offsets built and
+    uploaded (``audit_assembly_s``) and of the DP calls up to their results
+    on the host (``audit_dp_s``), and the pieces and their rows handed to
+    the DP (``audit_pieces``, ``audit_rows``), of which the DP fetched
+    ``audit_pieces_fetched`` from device buffers.
     """
+    from ..kernels.band_dp_stats import band_dp_stats_flat
     from .extend import band_dp_stats_batch
 
+    fused = device_data is not None and dp is None
     if dp is None:
         dp = band_dp_stats_batch
 
@@ -1115,33 +1182,16 @@ def compute_winner_stats(
 
     # Piece table: (winner, piece q window [a, b), t window start).
     with span(timings, "audit_table_s", "align.audit.table"):
-        p_win, p_a, p_b, p_t0 = [], [], [], []
-        for wi in range(n):
-            qs, qe = int(winners.qs[wi]), int(winners.qe[wi])
-            ts = int(winners.ts[wi])
-            rows = qe - qs + 1
-            if rows <= 0:
-                continue
-            for a in range(qs, qe + 1, PIECE):
-                b = min(a + PIECE, qe + 1)
-                t_a = ts + round((a - qs) * int(tspan[wi]) / rows)
-                p_win.append(wi)
-                p_a.append(a)
-                p_b.append(b)
-                p_t0.append(t_a - B2 // 2)
-        p_win = np.asarray(p_win, np.int64)
-        p_a = np.asarray(p_a, np.int64)
-        p_b = np.asarray(p_b, np.int64)
-        p_t0 = np.asarray(p_t0, np.int64)
+        p_win, p_a, p_b, p_t0 = audit_piece_table(winners, PIECE, B2)
         p_m = p_b - p_a
-
         order = np.argsort(p_m, kind="stable")
-        bucket_of = np.array(
-            [_pick_bucket(int(v), cfg.buckets) for v in p_m[order]],
-            dtype=np.int64,
-        )
+        bucket_of = pick_buckets(p_m[order], cfg.buckets)
+        if fused:
+            pieces = _fused_pieces(reads, winners, device_data, p_win, p_a,
+                                   p_b, p_t0)
     add(timings, "audit_pieces", len(p_m))
     add(timings, "audit_rows", p_m.sum())
+    add(timings, "audit_pieces_fetched", len(p_m) if fused else 0)
     rc_cache: Dict[int, np.ndarray] = {}
 
     def oriented_read(read_id: int, strand: int) -> np.ndarray:
@@ -1151,40 +1201,54 @@ def compute_winner_stats(
             rc_cache[read_id] = revcomp_codes(reads.seq(read_id))
         return rc_cache[read_id]
 
+    def assemble(sel, bucket):
+        """The host path's windows q (P, bucket), t (P, bucket + B2)."""
+        P = len(sel)
+        q = np.full((P, bucket), 4, dtype=np.int8)
+        t = np.full((P, bucket + B2), 4, dtype=np.int8)
+        for row, pi in enumerate(sel):
+            wi = int(p_win[pi])
+            a, b = int(p_a[pi]), int(p_b[pi])
+            window = oriented_read(
+                int(winners.read[wi]), int(winners.strand[wi])
+            )[a:b]
+            q[row, : len(window)] = window
+            # Target clamped to the winning span so the rectangle
+            # union stays exact.
+            seq = panel.paths[int(winners.path[wi])].seq
+            t_start = int(p_t0[pi])
+            src_lo = max(int(winners.ts[wi]), t_start, 0)
+            src_hi = min(
+                int(winners.te[wi]) + 1,
+                t_start + bucket + B2,
+                len(seq),
+            )
+            if src_hi > src_lo:
+                t[row, src_lo - t_start : src_hi - t_start] = seq[
+                    src_lo:src_hi
+                ]
+        return q, t
+
     score_sum = np.zeros(n, dtype=np.int64)
     n_diag_sum = np.zeros(n, dtype=np.int64)
     for bucket in sorted(set(bucket_of.tolist())):
         sel = order[bucket_of == bucket]
         with span(timings, "audit_assembly_s", "align.audit.assembly"):
-            P = len(sel)
-            q = np.full((P, bucket), 4, dtype=np.int8)
-            t = np.full((P, bucket + B2), 4, dtype=np.int8)
-            for row, pi in enumerate(sel):
-                wi = int(p_win[pi])
-                a, b = int(p_a[pi]), int(p_b[pi])
-                window = oriented_read(
-                    int(winners.read[wi]), int(winners.strand[wi])
-                )[a:b]
-                q[row, : len(window)] = window
-                # Target clamped to the winning span so the rectangle
-                # union stays exact.
-                seq = panel.paths[int(winners.path[wi])].seq
-                t_start = int(p_t0[pi])
-                src_lo = max(int(winners.ts[wi]), t_start, 0)
-                src_hi = min(
-                    int(winners.te[wi]) + 1,
-                    t_start + bucket + B2,
-                    len(seq),
-                )
-                if src_hi > src_lo:
-                    t[row, src_lo - t_start : src_hi - t_start] = seq[
-                        src_lo:src_hi
-                    ]
+            if fused:
+                cols = torch.from_numpy(
+                    np.ascontiguousarray(pieces[:, sel])).to(device)
+            else:
+                q, t = assemble(sel, bucket)
         with span(timings, "audit_dp_s", "align.audit.dp"):
-            out = dp(
-                torch.from_numpy(q).to(device),
-                torch.from_numpy(t).to(device), B2, params,
-            )
+            if fused:
+                out = band_dp_stats_flat(
+                    device_data.reads2, device_data.panel_padded, cols,
+                    bucket, B2, params)
+            else:
+                out = dp(
+                    torch.from_numpy(q).to(device),
+                    torch.from_numpy(t).to(device), B2, params,
+                )
             host = torch.stack(
                 [out["matches"], out["n_diag"], out["score"]]
             ).cpu().numpy().astype(np.int64)
@@ -1537,7 +1601,8 @@ NESTED_SPANS = (
 )
 #: Work handed to each step: chunks pulled, candidates seeded, winners
 #: counted; the forward DP's kept windows and Σ m, the reverse pass's
-#: winners and Σ (qe + 1), the audit's pieces and Σ rows; the device
+#: winners and Σ (qe + 1), the audit's pieces and Σ rows, and of those
+#: pieces the ones A1 fetched from device buffers; the device
 #: scan's positions (n_codes − k + 1), bases and read-offset entries; the
 #: count's winner × owned entries, crossings counted and audit lines
 #: formatted (:func:`count_support_flat`); and the all-types work: panel
@@ -1547,6 +1612,7 @@ NESTED_SPANS = (
 WORK_COUNTERS = (
     "n_chunks", "n_candidates", "n_winners", "dp_problems", "dp_rows",
     "rev_problems", "rev_rows", "audit_pieces", "audit_rows",
+    "audit_pieces_fetched",
     "scan_positions", "scan_codes", "scan_offsets", "count_entries",
     "count_crossings", "audit_line_rows", "decoy_suppressed",
     "count_crossings_inv", "count_crossings_bnd", "dp_rows_inv_bnd",
@@ -1651,7 +1717,8 @@ def align_and_count(
             with span(None, None, "align.audit"):
                 compute_winner_stats(chunk, panel, winners, align_cfg,
                                      dev.device_of(disp.device_data),
-                                     timings=timings)
+                                     timings=timings,
+                                     device_data=disp.device_data)
         with span(timings, "count_support_s", "align.count_support"):
             chunk_counts, chunk_audit = count_support_flat(
                 panel, winners, chunk, genotype_cfg.d_over, collect_audit,

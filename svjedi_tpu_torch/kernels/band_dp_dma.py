@@ -37,6 +37,13 @@ launches = 0
 
 
 def _check(reads2, panel_padded, vecs, bucket: int, band: int) -> None:
+    check_flat_inputs(reads2, panel_padded, vecs)
+    check_packing(bucket, band)
+
+
+def check_flat_inputs(reads2, panel_padded, vecs) -> None:
+    """Raise unless the flat buffers are 1-D int8 and the per-problem
+    vectors (P,) int32, all on one device."""
     for name, buf in (("reads2", reads2), ("panel_padded", panel_padded)):
         if buf.dim() != 1 or buf.dtype != torch.int8:
             raise TypeError(f"{name} must be a 1-D int8 tensor")
@@ -46,7 +53,6 @@ def _check(reads2, panel_padded, vecs, bucket: int, band: int) -> None:
             raise TypeError("q_start/t_start/m/t_lo/t_hi must be (P,) int32")
     if any(x.device != reads2.device for x in (panel_padded, *vecs)):
         raise ValueError("buffers and vectors must lie on one device")
-    check_packing(bucket, band)
 
 
 def band_dp_dma_raw_ref(

@@ -14,16 +14,28 @@ body of ``csrc/band_dp_body.cuh``) on CUDA tensors and takes
 :func:`band_dp_stats_ref`, its plain PyTorch version (the row loop of
 ``align/extend.py``), on CPU tensors; any other device raises. The kernel
 carries ``n_diag << 16 | matches`` per cell, so ``M < 65536``.
+
+:func:`band_dp_stats_flat` is the same DP on windows it fetches itself, the
+contract of ``kernels/band_dp_dma.py`` (K3): the chunk's resident buffers
+``reads2`` and ``panel_padded`` (``align/device.py``) and per piece the
+int32 offsets of :data:`PIECE_ROWS`. On CUDA tensors it launches the
+kernel's fused-fetch entry (``band_dp_stats_flat_launch``); on CPU tensors
+it gathers the windows (``align/device.py:gather_windows``) and takes
+:func:`band_dp_stats_ref`. :func:`pack_pieces` builds the offsets and
+refuses any that leaves int32.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
+from ..align.device import gather_windows
 from ..align.extend import DPParams, _band_dp_rows
 from .band_dp import check_windows
+from .band_dp_dma import check_flat_inputs
 
 #: Kernel launches since import (or since a caller reset it to 0). Counted
 #: only where the CUDA kernel is launched, never by the plain version.
@@ -33,6 +45,10 @@ launches = 0
 STATS_COLS = ("score", "matches", "n_diag", "qe", "te")
 #: Bands the kernel builds: K4's two layouts and 32 lanes x 16 cells.
 KERNEL_BANDS = (128, 256, 512)
+#: Rows of :func:`band_dp_stats_flat`'s (5, P) int32 piece table: the read
+#: window's start in ``reads2``, the target window's lane 0 in
+#: ``panel_padded``, the read rows, and the target's valid [t_lo, t_hi).
+PIECE_ROWS = ("q_start", "t_start", "m", "t_lo", "t_hi")
 
 
 def _check(q: torch.Tensor, t: torch.Tensor, band: int) -> None:
@@ -120,4 +136,76 @@ def band_dp_stats(
     if q.device.type != "cuda":
         raise ValueError(f"band_dp_stats: unsupported device {q.device}")
     out = _launch(q, t, band, params)
+    return {name: out[:, c] for c, name in enumerate(STATS_COLS)}
+
+
+def pack_pieces(q_start, t_start, m, t_lo, t_hi) -> np.ndarray:
+    """The (5, P) int32 piece table of :data:`PIECE_ROWS` from int64 columns;
+    raises ValueError where a value leaves int32 (the kernel's offsets)."""
+    cols = np.stack([np.asarray(c, dtype=np.int64)
+                     for c in (q_start, t_start, m, t_lo, t_hi)])
+    info = np.iinfo(np.int32)
+    if cols.size and (cols.min() < info.min or cols.max() > info.max):
+        raise ValueError("a piece offset leaves int32: the fused-fetch stats "
+                         "kernel addresses reads2 and panel_padded in int32")
+    return cols.astype(np.int32)
+
+
+def _launch_flat(reads2, panel_padded, vecs, bucket: int, band: int,
+                 params: DPParams) -> torch.Tensor:
+    from . import build
+
+    global launches
+    check_kernel_shape(band, bucket)
+    q_start, t_start, m, t_lo, t_hi = vecs
+    P = q_start.shape[0]
+    lib = build.load_library()
+    out = torch.empty((P, 8), dtype=torch.int32, device=reads2.device)
+    with torch.cuda.device(reads2.device):
+        stream = torch.cuda.current_stream(reads2.device).cuda_stream
+        rc = lib.band_dp_stats_flat_launch(
+            reads2.data_ptr(), reads2.shape[0], panel_padded.data_ptr(),
+            panel_padded.shape[0], q_start.data_ptr(), t_start.data_ptr(),
+            m.data_ptr(), t_lo.data_ptr(), t_hi.data_ptr(), out.data_ptr(),
+            P, bucket, band, params.match, params.mismatch,
+            params.open_extend, params.gap_extend, stream,
+        )
+    build.check(lib, rc, "band_dp_stats_flat kernel launch")
+    launches += 1
+    return out
+
+
+def band_dp_stats_flat(
+    reads2: torch.Tensor,  # int8 (2N + pad,): fwd ++ revcomp ++ sentinel pad
+    panel_padded: torch.Tensor,  # int8, sentinel-padded both ends
+    pieces: torch.Tensor,  # (5, P) int32, rows PIECE_ROWS
+    bucket: int,
+    band: int,
+    params: DPParams = DPParams(),
+) -> Dict[str, torch.Tensor]:
+    """Per piece score, matches, n_diag, qe, te, int32 each, of the stats DP
+    over ``bucket`` read rows ``reads2[q_start + i]`` (4 at ``i >= m``) and
+    the target ``panel_padded[t_start + j]`` (4 outside ``[t_lo, t_hi)``):
+    :func:`band_dp_stats` of :func:`gather_windows`' windows.
+
+    CUDA tensors launch the kernel; CPU tensors gather the windows and take
+    the plain version.
+    """
+    if pieces.dim() != 2 or pieces.shape[0] != len(PIECE_ROWS):
+        raise TypeError(f"pieces must be ({len(PIECE_ROWS)}, P), rows "
+                        f"{PIECE_ROWS}")
+    vecs = tuple(pieces)
+    check_flat_inputs(reads2, panel_padded, vecs)
+    if not all(x.is_contiguous() for x in (reads2, panel_padded, pieces)):
+        raise ValueError("band_dp_stats_flat needs contiguous inputs")
+    check_rider(bucket)
+    if reads2.device.type == "cpu":
+        q_start, t_start, m, t_lo, t_hi = vecs
+        q, t = gather_windows(reads2, panel_padded, q_start, m, t_start,
+                              t_lo, t_hi, bucket, band)
+        return band_dp_stats_ref(q, t, band, params)
+    if reads2.device.type != "cuda":
+        raise ValueError(f"band_dp_stats_flat: unsupported device "
+                         f"{reads2.device}")
+    out = _launch_flat(reads2, panel_padded, vecs, bucket, band, params)
     return {name: out[:, c] for c, name in enumerate(STATS_COLS)}

@@ -168,6 +168,11 @@ def load_library() -> ctypes.CDLL:
             i32, i32, i32, i32, i32, i32, i32, ptr,
         ]
         lib.band_dp_dma_launch.restype = i32
+        lib.band_dp_stats_flat_launch.argtypes = [
+            ptr, i64, ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr,
+            i32, i32, i32, i32, i32, i32, i32, ptr,
+        ]
+        lib.band_dp_stats_flat_launch.restype = i32
         lib.dev_scan_launch.argtypes = [ptr, ptr, i32, i64, i32, i32, ptr, ptr]
         lib.dev_scan_launch.restype = i32
         lib.svjt_cuda_error_string.argtypes = [i32]

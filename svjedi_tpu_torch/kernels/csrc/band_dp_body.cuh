@@ -1,10 +1,11 @@
-// The one-pass DP body (dp_body) and what its pre-gathered entries share:
-// K4 (band_dp_onepass.cu, band_dp_onepass_kernel), A1, the audit's stats
-// DP (band_dp_stats.cu), and G1, the gather engine's DP
-// (band_dp_gather.cu). K3 (band_dp_dma_kernel) runs the same body on
-// windows it fetches itself. The contract, layout and tie rules are
-// band_dp_onepass.cu's head comment; the riders and end rules are at
-// dp_body.
+// The one-pass DP body (dp_body) and its two entries: pre-gathered windows
+// (gathered_entry: K4, band_dp_onepass.cu's band_dp_onepass_kernel; A1,
+// the audit's stats DP, band_dp_stats.cu's band_dp_stats_kernel; G1, the
+// gather engine's DP, band_dp_gather.cu) and windows fetched from the flat
+// read and panel buffers (flat_entry: K3, band_dp_onepass.cu's
+// band_dp_dma_kernel; A1's fused fetch, band_dp_stats_kernel_flat). The
+// contract, layout and tie rules are band_dp_onepass.cu's head comment;
+// the riders and end rules are at dp_body.
 
 #pragma once
 
@@ -24,6 +25,27 @@ struct Gathered {
   int t_len;        // rows + band (0 without rows): no row reads t beyond it
   __device__ int q_at(int i) const { return i < rows ? q[i] : 4; }
   __device__ int t_at(int j) const { return j < t_len ? t[j] : 4; }
+};
+
+
+// Windows of a fused-fetch entry: offsets into the flat buffers.
+struct Flat {
+  const int8_t* reads;
+  long long n_reads;
+  long long q0;  // q_start
+  int rows;      // min(m, bucket): read rows beyond read as 4
+  const int8_t* panel;
+  long long t0;  // t_start
+  long long lo;  // max(t_lo, 0)
+  long long hi;  // min(t_hi, panel length)
+  __device__ int q_at(int i) const {
+    const long long pos = q0 + i;
+    return (i < rows && pos >= 0 && pos < n_reads) ? reads[pos] : 4;
+  }
+  __device__ int t_at(int j) const {
+    const long long pos = t0 + j;
+    return (pos >= lo && pos < hi) ? panel[pos] : 4;
+  }
 };
 
 
@@ -383,6 +405,42 @@ __device__ __forceinline__ void gathered_entry(const int8_t* __restrict__ q,
 }
 
 
+// One problem group of a fused-fetch entry (K3, A1's flat entry): problem
+// p's windows are reads[q_start[p] + i] (sentinel at i >= m[p]) and
+// panel[t_start[p] + j] (sentinel outside [t_lo[p], t_hi[p]) and outside
+// either buffer). Where `skip` holds, the warp runs up to its problems'
+// largest min(m, bucket), rounded up to C; otherwise every one of the
+// bucket rows.
+template <int G, int C, bool kWide, bool kStats, bool kRowEnd>
+__device__ __forceinline__ void flat_entry(
+    const int8_t* __restrict__ reads, long long n_reads,
+    const int8_t* __restrict__ panel, long long n_panel,
+    const int32_t* __restrict__ q_start, const int32_t* __restrict__ t_start,
+    const int32_t* __restrict__ m, const int32_t* __restrict__ t_lo,
+    const int32_t* __restrict__ t_hi, int32_t* __restrict__ out, int P,
+    int bucket, bool skip, int match, int mismatch, int oe, int ext) {
+  constexpr int kGroups = 32 / G;  // problems per warp
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % G;  // lane within the problem's group
+  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (warp * kGroups >= P) return;
+  const int p = warp * kGroups + lane / G;
+  const bool live = p < P;  // a dead group still takes part in shuffles
+  const int own_rows = live ? max(0, min(m[p], bucket)) : 0;
+  const Flat src{reads,
+                 n_reads,
+                 live ? (long long)q_start[p] : 0LL,
+                 own_rows,
+                 panel,
+                 live ? (long long)t_start[p] : 0LL,
+                 live ? max((long long)t_lo[p], 0LL) : 0LL,
+                 live ? min((long long)t_hi[p], n_panel) : 0LL};
+  dp_body<G, C, kWide, kStats, kRowEnd>(
+      src, warp_rows<C>(own_rows, bucket, skip), gl, live, match, mismatch,
+      oe, ext, out + 8 * (size_t)p);
+}
+
+
 // Blocks for P problems of a build with G lanes per problem.
 template <int G>
 dim3 grid_for(int P) {
@@ -392,7 +450,7 @@ dim3 grid_for(int P) {
 
 
 // Calls launch(G, C, kWide), each an integral constant, with the
-// pre-gathered build of A1 and G1 for the band (K4's layouts, 16 and 32
+// build of A1 (both entries) and G1 for the band (K4's layouts, 16 and 32
 // lanes x 8 cells, at 128 and 256; 32 lanes x 16 cells at 512) and the
 // scores, and returns the launch's CUDA error. The row count must be a
 // multiple of the build's cells per lane.

@@ -61,27 +61,6 @@
 
 namespace {
 
-// Windows of the fused-fetch entry: offsets into the flat buffers.
-struct Flat {
-  const int8_t* reads;
-  long long n_reads;
-  long long q0;  // q_start
-  int rows;      // min(m, bucket): read rows beyond read as 4
-  const int8_t* panel;
-  long long t0;  // t_start
-  long long lo;  // max(t_lo, 0)
-  long long hi;  // min(t_hi, panel length)
-  __device__ int q_at(int i) const {
-    const long long pos = q0 + i;
-    return (i < rows && pos >= 0 && pos < n_reads) ? reads[pos] : 4;
-  }
-  __device__ int t_at(int j) const {
-    const long long pos = t0 + j;
-    return (pos >= lo && pos < hi) ? panel[pos] : 4;
-  }
-};
-
-
 // K3: the fused fetch. Problem p's windows are reads[q_start[p] + i]
 // (sentinel at i >= m[p]) and panel[t_start[p] + j] (sentinel outside
 // [t_lo[p], t_hi[p]) and outside either buffer).
@@ -96,25 +75,9 @@ band_dp_dma_kernel(const int8_t* __restrict__ reads, long long n_reads,
                    const int32_t* __restrict__ t_hi,
                    int32_t* __restrict__ out, int P, int bucket, bool skip,
                    int match, int mismatch, int oe, int ext) {
-  constexpr int kGroups = 32 / G;  // problems per warp
-  const int lane = threadIdx.x & 31;
-  const int gl = lane % G;  // lane within the problem's group
-  const int warp = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (warp * kGroups >= P) return;
-  const int p = warp * kGroups + lane / G;
-  const bool live = p < P;  // a dead group still takes part in shuffles
-  const int own_rows = live ? max(0, min(m[p], bucket)) : 0;
-  const Flat src{reads,
-                 n_reads,
-                 live ? (long long)q_start[p] : 0LL,
-                 own_rows,
-                 panel,
-                 live ? (long long)t_start[p] : 0LL,
-                 live ? max((long long)t_lo[p], 0LL) : 0LL,
-                 live ? min((long long)t_hi[p], n_panel) : 0LL};
-  dp_body<G, kCells, kWide, false, false>(
-      src, warp_rows<kCells>(own_rows, bucket, skip), gl, live, match,
-      mismatch, oe, ext, out + 8 * (size_t)p);
+  flat_entry<G, kCells, kWide, false, false>(
+      reads, n_reads, panel, n_panel, q_start, t_start, m, t_lo, t_hi, out, P,
+      bucket, skip, match, mismatch, oe, ext);
 }
 
 // K4: pre-gathered windows q (P, M) and t (P, M + band).

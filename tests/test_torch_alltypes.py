@@ -7,10 +7,12 @@ several chromosomes, made by the benchmark's generator
 genotype VCF byte for byte; the port's counts are ``correct`` against the
 plain reference (``benchmark/reference_simgenome_alltypes.py``) under the
 cell's limits; the reference counts hand-built reads of each BND flavour,
-an intra-chromosomal BND and an INV as SVJedi-graph does; and the align
-stage's all-types counters add up.
+an intra-chromosomal BND and an INV as SVJedi-graph does; the align
+stage's all-types counters add up; and the audit's fused fetch gives the
+host path's and JAX's audit fields on winners of INV and BND paths.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -19,16 +21,27 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 from benchmark import cells
 from benchmark import gen_simgenome_alltypes as galt
 from benchmark import reference_simgenome_alltypes as ralt
+from svjedi_tpu.align import pipeline as jpipe
+from svjedi_tpu.config import AlignConfig as JaxAlignConfig
+from svjedi_tpu.io.fastq import ReadSet as JaxReadSet
+from svjedi_tpu_torch.align import device as tdev
 from svjedi_tpu_torch.align import pipeline as tpipe
+from svjedi_tpu_torch.config import AlignConfig
 from svjedi_tpu_torch.genotype.filter_gaf import counts_from_informative
 from svjedi_tpu_torch.io.fasta import write_fasta
 
 from tests.conftest import REPO_ROOT
 
+# The plain DP runs thousands of tiny ops per call: one thread each is
+# faster than many.
+torch.set_num_threads(1)
+
+CPU = torch.device("cpu")
 CELL = "simgenome-alltypes.ont30x"
 #: Five 40 kb chromosomes, 20 records (5 of each type; the BND are one
 #: direct and one inverted translocation and one intra-chromosomal
@@ -144,6 +157,72 @@ def test_all_types_counters_add_up(runs):
     assert 0 < s["winners_cross_chrom"] <= s["n_winners"]
     assert 0 < s["decoy_s"] <= s["seed_cpu_s"]
     assert s["decoy_suppressed"] >= 0
+
+
+@pytest.fixture(scope="module")
+def aligned(bundle):
+    """The port's winners on the bundle (one chunk on the CPU, no audit),
+    with its reads and panel."""
+    from svjedi_tpu_torch.align.index import build_panel_index
+    from svjedi_tpu_torch.config import GenotypeConfig
+    from svjedi_tpu_torch.graph.build import build_graph
+    from svjedi_tpu_torch.graph.cluster import build_panel
+    from svjedi_tpu_torch.graph.svparse import parse_vcf_svs
+    from svjedi_tpu_torch.io.fasta import read_fasta
+    from svjedi_tpu_torch.io.fastq import read_reads
+
+    cfg = AlignConfig()
+    chroms = read_fasta(str(bundle.paths["ref"]))
+    parsed = parse_vcf_svs(bundle.paths["vcf"],
+                           {c: len(x) for c, x in chroms.items()})
+    panel = build_panel(
+        build_graph(chroms, parsed), flank=cfg.flank,
+        cluster_gap=cfg.cluster_gap,
+        max_paths_per_cluster=cfg.max_paths_per_cluster,
+        max_hops_per_path=cfg.max_hops_per_path)
+    index = build_panel_index(
+        panel, k=cfg.kmer, w=cfg.window,
+        max_hits_per_minimizer=cfg.max_hits_per_minimizer)
+    reads = read_reads(str(bundle.paths["reads"]))
+    _, _, winners = tpipe.align_and_count(
+        reads, panel, index, cfg, GenotypeConfig(), device=CPU,
+        collect_audit=False, chunk_reads=reads.n_reads)
+    return reads, panel, winners
+
+
+@pytest.mark.parametrize("block_rows", [1536, 700])
+def test_audit_fused_fetch_matches_host_and_jax(aligned, block_rows):
+    """``compute_winner_stats`` with the chunk's buffers (the DP fetching
+    every piece from them) equals the host path and JAX's, on winners of
+    both strands on INV and BND paths and on paths across chromosomes."""
+    reads, panel, winners = aligned
+    table = tpipe.count_table(panel)
+    on = table.path_inv_bnd[winners.path]
+    assert set(winners.strand[on].tolist()) == {0, 1}
+    assert table.path_cross_chrom[winners.path].any()
+    fields = {f.name: getattr(winners, f.name)
+              for f in dataclasses.fields(jpipe.Winners)}
+    jw = jpipe.Winners(**{k: None if v is None else v.copy()
+                          for k, v in fields.items()})
+    jreads = JaxReadSet(names=reads.names, codes=reads.codes,
+                        offsets=reads.offsets)
+    jpipe.compute_winner_stats(jreads, panel, jw,
+                               JaxAlignConfig(block_rows=block_rows))
+    for fused in (False, True):
+        tw = dataclasses.replace(winners)
+        dd = (tdev.upload(reads.codes, panel, CPU)
+              if fused else None)
+        timings = {}
+        tpipe.compute_winner_stats(reads, panel, tw,
+                                   AlignConfig(block_rows=block_rows),
+                                   CPU, timings=timings,
+                                   device_data=dd)
+        assert timings["audit_pieces"] > len(tw.read)
+        assert timings["audit_pieces_fetched"] == (
+            timings["audit_pieces"] if fused else 0)
+        for f in ("matches", "blocklen", "rescore_deficit", "rescore_flag"):
+            np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f),
+                                          err_msg=f"{f} fused={fused}")
 
 
 # -- hand-built cases ---------------------------------------------------------

@@ -8,8 +8,13 @@ and buckets, on ragged pieces, tied maxima, inputs where the (score, row)
 end rule and the one-pass kernels' per-cell rule part, and scores at which
 every row must run. A numpy model of the kernel's row skip, and
 ``compute_winner_stats`` with whole-bucket batches, are held to JAX too.
+So is ``compute_winner_stats``' fused path, in which the DP fetches its
+windows from the chunk's uploaded buffers (``band_dp_stats_flat``; on the
+CPU a gather and the plain version), beside the host path, whose piece
+table it shares: the vectorised table equals the per-piece loop it
+replaced, and the fetch equals windows cut by hand from the buffers.
 The CUDA kernel is held against its plain version on the card
-(``chip_smoke.py`` phase 2e and the gpu-marked test at the end).
+(``chip_smoke.py`` phase 2e and the gpu-marked tests at the end).
 """
 
 from types import SimpleNamespace
@@ -23,6 +28,7 @@ from svjedi_tpu.align.extend import DPParams as JaxDPParams
 from svjedi_tpu.align.extend import band_dp_stats_batch as jax_stats
 from svjedi_tpu.config import AlignConfig as JaxAlignConfig
 from svjedi_tpu.io.fastq import ReadSet as JaxReadSet
+from svjedi_tpu_torch.align import device as tdev
 from svjedi_tpu_torch.align import pipeline as tpipe
 from svjedi_tpu_torch.align.extend import (
     DPParams, _band_dp_rows, band_dp_stats_batch,
@@ -302,7 +308,8 @@ def test_compute_winner_stats_batching_matches_jax(pieces):
 
 def test_compute_winner_stats_takes_another_dp():
     """``dp=`` replaces the stats DP (chip_smoke.py runs the plain version
-    through it on the card)."""
+    through it on the card), also where the chunk's buffers are given: the
+    host assembles the windows then, and no piece is fetched."""
     trs, panel, tw = _audit_case(ReadSet, tpipe.Winners)
     calls = []
 
@@ -310,10 +317,174 @@ def test_compute_winner_stats_takes_another_dp():
         calls.append((tuple(q.shape), band))
         return a1.band_dp_stats_ref(q, t, band, params)
 
+    timings = {}
     tpipe.compute_winner_stats(trs, panel, tw, AlignConfig(block_rows=700),
-                               CPU, dp=dp)
+                               CPU, dp=dp, timings=timings,
+                               device_data=tdev.upload(trs.codes, panel, CPU))
     assert {b for _, b in calls} == {256}
     assert {s[1] for s, _ in calls} == {512, 1024}
+    assert timings["audit_pieces"] == sum(s[0] for s, _ in calls) > 0
+    assert timings["audit_pieces_fetched"] == 0
+
+
+def _loop_piece_table(winners, block_rows: int, band: int):
+    """The per-winner, per-piece loop that built ``compute_winner_stats``'
+    piece table before :func:`tpipe.audit_piece_table`: the reference."""
+    tspan = (winners.te - winners.ts + 1).astype(np.int64)
+    p_win, p_a, p_b, p_t0 = [], [], [], []
+    for wi in range(len(winners.qs)):
+        qs, qe = int(winners.qs[wi]), int(winners.qe[wi])
+        ts = int(winners.ts[wi])
+        rows = qe - qs + 1
+        if rows <= 0:
+            continue
+        for a in range(qs, qe + 1, block_rows):
+            b = min(a + block_rows, qe + 1)
+            t_a = ts + round((a - qs) * int(tspan[wi]) / rows)
+            p_win.append(wi)
+            p_a.append(a)
+            p_b.append(b)
+            p_t0.append(t_a - band // 2)
+    return tuple(np.asarray(x, np.int64) for x in (p_win, p_a, p_b, p_t0))
+
+
+@pytest.mark.parametrize("block_rows", [1, 3, 700, 1536])
+def test_audit_piece_table_equals_the_loop(block_rows):
+    """Random spans, a last piece shorter than ``block_rows``, winners with
+    no rows (qe < qs) and spans whose interpolated start falls exactly half
+    way between two positions, where both round half to even."""
+    rng = np.random.default_rng(block_rows)
+    n = 300
+    qs = rng.integers(0, 20000, n)
+    rows = rng.integers(1, 6000, n)
+    rows[:40] = rng.integers(-3, 1, 40)  # no rows: no piece
+    ts = rng.integers(-400, 20000, n)
+    tspan = rng.integers(1, 6000, n)
+    # Ties: row a = qs + j * block_rows lands at ts + j * tspan / 4, a half
+    # for odd j when tspan is 2 mod 4.
+    tie = slice(40, 80)
+    rows[tie] = 4 * block_rows
+    tspan[tie] = 4 * rng.integers(0, 500, 40) + 2
+    w = SimpleNamespace(qs=qs, qe=qs + rows - 1, ts=ts, te=ts + tspan - 1)
+    got = tpipe.audit_piece_table(w, block_rows, 256)
+    ref = _loop_piece_table(w, block_rows, 256)
+    for g, r, name in zip(got, ref, ("winner", "a", "b", "t0")):
+        assert g.dtype == np.int64, name
+        np.testing.assert_array_equal(g, r, err_msg=name)
+    win, a, b = ref[:3]
+    halves = ((a - qs[win]) * tspan[win] * 2) % rows[win] == 0
+    assert (halves & ((a - qs[win]) * tspan[win] % rows[win] != 0)).sum() > 10
+    assert block_rows == 1 or ((b - a) < block_rows).any()
+    assert len(win) > 200
+    assert not np.isin(np.arange(40), win).any()
+
+
+def test_pick_buckets_equals_pick_bucket():
+    buckets = AlignConfig().buckets
+    m = np.concatenate([np.arange(0, 40000, 7), np.asarray(buckets),
+                        np.asarray(buckets) + 1])
+    np.testing.assert_array_equal(
+        tpipe.pick_buckets(m, buckets),
+        [tpipe._pick_bucket(int(v), buckets) for v in m])
+
+
+@pytest.mark.parametrize("block_rows", [700, 1536])
+def test_compute_winner_stats_fused_matches_host_and_jax(block_rows):
+    """With the chunk's buffers the DP fetches every piece from them (both
+    strands: half the reads are reverse-complemented), and the audit's
+    fields equal the host path's and JAX's."""
+    jrs, panel, jw = _audit_case(JaxReadSet, jpipe.Winners)
+    jpipe.compute_winner_stats(jrs, panel, jw,
+                               JaxAlignConfig(block_rows=block_rows))
+    for fused in (False, True):
+        trs, _, tw = _audit_case(ReadSet, tpipe.Winners)
+        dd = tdev.upload(trs.codes, panel, CPU) if fused else None
+        timings = {}
+        tpipe.compute_winner_stats(trs, panel, tw,
+                                   AlignConfig(block_rows=block_rows), CPU,
+                                   timings=timings, device_data=dd)
+        assert timings["audit_pieces"] > len(tw.read) or block_rows == 1536
+        assert timings["audit_pieces_fetched"] == (
+            timings["audit_pieces"] if fused else 0)
+        for f in ("matches", "blocklen", "rescore_deficit", "rescore_flag"):
+            np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f),
+                                          err_msg=f"{f} fused={fused}")
+
+
+def _flat_case(seed: int, M: int, band: int):
+    """Flat buffers holding audit-like pieces (``_pieces`` and the two
+    equal local alignments) between random codes, and per piece the five
+    offsets of ``a1.PIECE_ROWS``: ragged m (0, and past the bucket too),
+    clamps of the target inside and around its window, an empty target
+    range, and windows reaching past either end of both buffers. Returns
+    (reads2, panel, pieces, q, t), q and t the windows cut by hand."""
+    rng = np.random.default_rng(seed)
+    q, t = _pieces(seed, 24, M, band)
+    q2, t2 = _two_local_alignments(M, band)
+    q, t = np.concatenate([q, q2]), np.concatenate([t, t2])
+    P, W = len(q), M + band
+    reads2 = np.concatenate([rng.integers(0, 5, 100), q.reshape(-1),
+                             rng.integers(0, 5, 100)]).astype(np.int8)
+    panel = np.concatenate([rng.integers(0, 5, 300), t.reshape(-1),
+                            rng.integers(0, 5, 300)]).astype(np.int8)
+    q_start = 100 + M * np.arange(P)
+    m = rng.integers(0, M + 1, P)
+    m[:4] = (M, 0, M + 40, M)
+    t_start = 300 + W * np.arange(P)
+    t_lo = t_start + rng.integers(-60, 80, P)
+    t_hi = t_start + W - rng.integers(-60, 80, P)
+    t_lo[:3], t_hi[:3] = t_start[:3], t_start[:3] + W
+    t_hi[4] = t_lo[4] - 1
+    q_start[5], t_start[5] = -7, -9
+    t_lo[5] = -20
+    q_start[6], t_start[6] = len(reads2) - 50, len(panel) - 70
+    t_hi[6] = len(panel) + 100
+    pieces = a1.pack_pieces(q_start, t_start, m, t_lo, t_hi)
+    qw = np.full((P, M), 4, np.int8)
+    tw = np.full((P, W), 4, np.int8)
+    for p in range(P):
+        for i in range(min(m[p], M)):
+            if 0 <= q_start[p] + i < len(reads2):
+                qw[p, i] = reads2[q_start[p] + i]
+        for j in range(W):
+            pos = t_start[p] + j
+            if t_lo[p] <= pos < t_hi[p] and 0 <= pos < len(panel):
+                tw[p, j] = panel[pos]
+    return reads2, panel, pieces, qw, tw
+
+
+@pytest.mark.parametrize("band, M", [(256, 512), (512, 512)])
+def test_band_dp_stats_flat_equals_the_plain_version_on_its_windows(band, M):
+    reads2, panel, pieces, q, t = _flat_case(31 + band, M, band)
+    launches = a1.launches
+    got = a1.band_dp_stats_flat(torch.from_numpy(reads2),
+                                torch.from_numpy(panel),
+                                torch.from_numpy(pieces), M, band)
+    assert a1.launches == launches
+    ref = a1.band_dp_stats_ref(torch.from_numpy(q), torch.from_numpy(t),
+                               band)
+    _assert_equal(got, ref)
+    assert (ref["score"] > 0).sum() > len(q) // 2
+
+
+def test_band_dp_stats_flat_refuses():
+    ok = np.zeros(3, np.int64)
+    with pytest.raises(ValueError, match="int32"):
+        a1.pack_pieces(ok, ok, ok, ok, np.array([0, 2**31, 0]))
+    with pytest.raises(ValueError, match="int32"):
+        a1.pack_pieces(np.array([0, -2**31 - 1, 0]), ok, ok, ok, ok)
+    buf = torch.zeros(64, dtype=torch.int8)
+    pieces = torch.zeros((5, 3), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        a1.band_dp_stats_flat(buf, buf, pieces[:4], 512, 256)
+    with pytest.raises(TypeError):
+        a1.band_dp_stats_flat(buf, buf, pieces.to(torch.int64), 512, 256)
+    with pytest.raises(ValueError, match="65536"):
+        a1.band_dp_stats_flat(buf, buf, pieces, 1 << 16, 256)
+    with pytest.raises(ValueError, match="contiguous"):
+        a1.band_dp_stats_flat(buf, buf,
+                              torch.zeros((3, 5), dtype=torch.int32).T, 512,
+                              256)
 
 
 @pytest.fixture
@@ -337,6 +508,32 @@ def test_cuda_kernel_matches_plain_version(cuda_device, band, M, scores):
     launches = a1.launches
     got = band_dp_stats_batch(qd, td, band, params)
     ref = a1.band_dp_stats_ref(qd, td, band, params)
+    torch.cuda.synchronize()
+    assert a1.launches == launches + 1
+    for key in KEYS:
+        np.testing.assert_array_equal(got[key].cpu().numpy(),
+                                      ref[key].cpu().numpy(), err_msg=key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("band, M", [(256, 512), (256, 2048), (512, 2048)])
+@pytest.mark.parametrize("scores", [{}, dict(gap_open=2, gap_extend=-2),
+                                    dict(mismatch=-200)],
+                         ids=["defaults", "oe=0", "wide"])
+def test_cuda_flat_kernel_matches_plain_version(cuda_device, band, M,
+                                                scores):
+    """The fused-fetch entry against the plain version on windows cut by
+    hand from the same buffers."""
+    reads2, panel, pieces, q, t = _flat_case(93, M, band)
+    params = DPParams(**scores)
+    launches = a1.launches
+    got = a1.band_dp_stats_flat(
+        *(torch.from_numpy(x).to(cuda_device) for x in (reads2, panel,
+                                                        pieces)),
+        M, band, params)
+    ref = a1.band_dp_stats_ref(torch.from_numpy(q).to(cuda_device),
+                               torch.from_numpy(t).to(cuda_device), band,
+                               params)
     torch.cuda.synchronize()
     assert a1.launches == launches + 1
     for key in KEYS:
