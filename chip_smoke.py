@@ -79,16 +79,18 @@ Phases (any failure exits non-zero; nothing is caught and continued):
    and the per-cell rule tell apart; at bucket 2048 also a zero gap open
    and a positive mismatch (every row runs) and the wide build (mismatch
    -200). Then ``compute_winner_stats`` on the winners of one production
-   chunk (16,384 reads of the 10 Mb bundle) on the card three ways: fused
-   (the chunk's uploaded buffers given: A1's fused-fetch entry,
-   ``band_dp_stats_flat``, fetches every piece), on host-built windows
-   with A1 and with the plain version: matches, blocklen, rescore_deficit
-   and rescore_flag equal; each path's time and split. The fused entry on
-   that chunk's pieces of every bucket, exactly against the plain version
-   on ``gather_windows``' windows, at bands 256 and 512, narrow and wide
-   (mismatch -200). At the production shape (that chunk's bucket-2048
-   pieces: its first 4,096 and the whole bucket, band 256) times A1, the
-   fused entry on the whole bucket and the plain version, with the bound.
+   chunk (16,384 reads of the 10 Mb bundle) on the card two ways, both on
+   the chunk's uploaded buffers: fused (A1's fused-fetch entry,
+   ``band_dp_stats_flat``, fetches every piece) and with the plain version
+   on ``gather_windows``' windows of the same pieces: matches, blocklen,
+   rescore_deficit and rescore_flag equal; each path's time and split.
+   The fused entry on that chunk's pieces of every bucket, exactly against
+   the plain version on ``gather_windows``' windows, at bands 256 and 512,
+   narrow and wide (mismatch -200). At the production shape (that chunk's
+   bucket-2048 pieces, their windows gathered: its first 4,096 and the
+   whole bucket, band 256) checks A1's pre-gathered entry exactly and
+   times it, the fused entry on the whole bucket and the plain version,
+   with the bound.
 3. Main path: runs ``python -m svjedi_tpu_torch run`` on the simulated
    bundle as a subprocess (the card, the v3 engine, with ``--gaf``). It
    must exit 0, genotype at accuracy 100.0, launch the forward and the
@@ -181,8 +183,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 Every phase prints its seconds. The kernels' launches in the JSON record
 are those of one path's run each: phase 3 (`run`) for K1, K1', D1 and A1's
 fused-fetch entry, phase 4 for K3, phase 2c for K4, phase 4b for G1, phase
-2e's host-path audit for A1's pre-gathered entry; log lines give the other
-paths', phases 8, 9 and 10 included.
+2e's production-shape checks and timing for A1's pre-gathered entry; log
+lines give the other paths', phases 8, 9 and 10 included.
 
 Everything runs through ``svjedi_tpu_torch``; nothing of JAX or of the JAX
 package is imported. The second-to-last line is the kernels' JSON record;
@@ -666,25 +668,21 @@ def check_device_scan(counters, n_reads: int, what: str) -> int:
 
 
 def check_stats_launches(counters, what: str) -> int:
-    """The run's audit must have gone through the stats kernel (A1), its
-    fused-fetch entry fetching every piece from the chunk's buffers;
-    returns its launches."""
+    """The run's audit must have gone through the stats kernel (A1), whose
+    fused-fetch entry fetches every piece from the chunk's buffers; returns
+    its launches."""
     launches = int(counters.get("band_dp_stats_launches", 0))
     if launches <= 0:
         fail(f"{what} launched the band_dp_stats kernel no time")
-    pieces = counters.get("audit_pieces")
-    fetched = counters.get("audit_pieces_fetched")
-    if not pieces or fetched != pieces:
-        fail(f"{what}: A1 fetched {fetched} of {pieces} audit pieces from "
-             f"the chunk's buffers, not all")
+    if not counters.get("audit_pieces"):
+        fail(f"{what}: the audit handed A1 no piece")
     return launches
 
 
 def audit_split(counters, launches: int) -> str:
     return (f"audit: band_dp_stats launches {launches}, pieces "
-            f"{counters.get('audit_pieces')} (fetched on the card "
-            f"{counters.get('audit_pieces_fetched')}), piece offsets' "
-            f"upload {counters.get('audit_assembly_s')} s, stats DP to host "
+            f"{counters.get('audit_pieces')}, piece offsets' upload "
+            f"{counters.get('audit_assembly_s')} s, stats DP to host "
             f"{counters.get('audit_dp_s')} s")
 
 
@@ -1259,7 +1257,7 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
             f"exact{extra} ({time.perf_counter() - t0:.1f} s)")
 
     # One production chunk's audit (the run's second chunk, 16,384 reads):
-    # its winners, then compute_winner_stats on the card three ways.
+    # its winners, then compute_winner_stats on the card two ways.
     cfg = AlignConfig()
     t0 = time.perf_counter()
     reads = read_reads(str(paths["reads"]))
@@ -1271,53 +1269,54 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
         decoy=genome["decoy"])
     log(f"[stats] production chunk: {chunk.n_reads} reads, "
         f"{len(winners.read)} winners ({time.perf_counter() - t0:.1f} s)")
-    pieces = {}
     flat = {}
-
-    def kernel_dp(q, t, band, params):
-        pieces[q.shape[1]] = (q, t)
-        return a1.band_dp_stats(q, t, band, params)
 
     def fused_dp(reads2, panel_padded, cols, bucket, band, params):
         flat[bucket] = cols
         return band_dp_stats_flat(reads2, panel_padded, cols, bucket, band,
                                   params)
 
-    # The fused path: A1 fetches every piece from the chunk's buffers, as
-    # align_and_count runs it; then the host path with A1 and with the
-    # plain version.
+    def plain_dp(reads2, panel_padded, cols, bucket, band, params):
+        q_start, t_start, m, t_lo, t_hi = cols
+        q, t = tdev.gather_windows(reads2, panel_padded, q_start, m, t_start,
+                                   t_lo, t_hi, bucket, band)
+        return a1.band_dp_stats_ref(q, t, band, params)
+
+    # As align_and_count runs it: A1's fused-fetch entry fetches every
+    # piece from the chunk's buffers; then the plain version on the same
+    # pieces' windows, gathered on the card.
     dd = tdev.upload(chunk.codes, genome["panel"], dev)
     band_dp_stats_flat = a1.band_dp_stats_flat
     runs = {}
-    for name, dp in (("fused", None), ("kernel", kernel_dp),
-                     ("plain", a1.band_dp_stats_ref)):
+    for name, dp in (("fused", fused_dp), ("plain", plain_dp)):
         timings = {}
         launches0 = a1.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        a1.band_dp_stats_flat = fused_dp
+        a1.band_dp_stats_flat = dp
         try:
-            apipe.compute_winner_stats(
-                chunk, genome["panel"], winners, cfg, dev, dp=dp,
-                timings=timings, device_data=dd if dp is None else None)
+            apipe.compute_winner_stats(chunk, genome["panel"], winners, cfg,
+                                       dd, timings=timings)
         finally:
             a1.band_dp_stats_flat = band_dp_stats_flat
         torch.cuda.synchronize()
         runs[name] = (time.perf_counter() - t0, timings,
                       {f: getattr(winners, f).copy() for f in AUDIT_FIELDS},
                       a1.launches - launches0)
-    if runs["fused"][1]["audit_pieces_fetched"] != \
-            runs["fused"][1]["audit_pieces"]:
-        fail("compute_winner_stats with the chunk's buffers fetched "
-             f"{runs['fused'][1]['audit_pieces_fetched']} of "
-             f"{runs['fused'][1]['audit_pieces']} pieces on the card")
-    for name in ("fused", "kernel"):
-        for f in AUDIT_FIELDS:
-            if not np.array_equal(runs[name][2][f], runs["plain"][2][f]):
-                fail(f"compute_winner_stats with the {name} stats kernel "
-                     f"differs from the plain version in {f}")
-    sizes = ", ".join(f"bucket {m}: {q.shape[0]}"
-                      for m, (q, _) in sorted(pieces.items()))
+    fetched = sum(cols.shape[1] for cols in flat.values())
+    if fetched != runs["fused"][1]["audit_pieces"] or runs["fused"][3] <= 0:
+        fail(f"compute_winner_stats: A1 fetched {fetched} of "
+             f"{runs['fused'][1]['audit_pieces']} pieces on the card in "
+             f"{runs['fused'][3]} launches")
+    if runs["plain"][3]:
+        fail(f"compute_winner_stats with the plain version launched A1 "
+             f"{runs['plain'][3]} times")
+    for f in AUDIT_FIELDS:
+        if not np.array_equal(runs["fused"][2][f], runs["plain"][2][f]):
+            fail(f"compute_winner_stats with the fused-fetch stats kernel "
+                 f"differs from the plain version in {f}")
+    sizes = ", ".join(f"bucket {m}: {cols.shape[1]}"
+                      for m, cols in sorted(flat.items()))
     for name, (secs, tm, _, n_launch) in runs.items():
         log(f"[stats] compute_winner_stats, {name} path: {secs:.3f} s, of "
             f"which table {tm['audit_table_s']:.3f} s, assembly "
@@ -1326,9 +1325,9 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
             f"their host results {tm['audit_dp_s']:.3f} s; A1 launches "
             f"{n_launch}")
     log(f"[stats] production chunk: matches, blocklen, rescore_deficit, "
-        f"rescore_flag equal on the fused path, with the kernel and with the "
-        f"plain version; pieces per bucket {sizes}; flagged "
-        f"{int(runs['kernel'][2]['rescore_flag'].sum())}")
+        f"rescore_flag equal on the fused path and with the plain version; "
+        f"pieces per bucket {sizes}; flagged "
+        f"{int(runs['fused'][2]['rescore_flag'].sum())}")
 
     # The fused-fetch entry on the same production pieces, exactly against
     # the plain version on gathered windows: bands 256 and 512, narrow and
@@ -1358,15 +1357,19 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
             f"{4 * cfg.band}, narrow and wide")
 
     # The production shape: the chunk's bucket-2048 pieces, band 256, its
-    # first 4,096 (the JAX package's slice) and the whole bucket; the
-    # fused-fetch entry on the whole bucket's offsets.
+    # first 4,096 (the JAX package's slice) and the whole bucket, on their
+    # gathered windows; the fused-fetch entry on the whole bucket's offsets.
     band = 2 * cfg.band
-    q, t = pieces[max(pieces)]
     cols = flat[max(flat)]
+    q_start, t_start, m, t_lo, t_hi = cols
+    q, t = tdev.gather_windows(dd.reads2, dd.panel_padded, q_start, m,
+                               t_start, t_lo, t_hi, max(flat), band)
     times = {}
+    gathered0 = a1.launches
     for label, qq, tt in (("4096", q[:4096], t[:4096]), ("bucket", q, t),
                           ("fused", q, t)):
         if label == "fused":
+            gathered = a1.launches - gathered0
             run = lambda: band_dp_stats_flat(  # noqa: E731
                 dd.reads2, dd.panel_padded, cols, qq.shape[1], band)
         else:
@@ -1393,14 +1396,13 @@ def phase_stats_kernel(peak_ops: float, paths, genome):
             f"({cells / 1e9:.3f} Gcell x {OPS_PER_CELL['stats']} ops), "
             f"{100 * bms / ms:.1f}% of bound")
     log(f"[stats] {n_cases} exact comparisons, max abs err {max_err}")
-    del pieces, flat, q, t, cols, winners, chunk, dd
+    del flat, q, t, cols, winners, chunk, dd
     torch.cuda.empty_cache()
     return {name: {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bms, "bound_by": by,
-                   "launches": runs[path][3]}
-            for name, path, (ms, plain_ms, bms, by) in (
-                ("gathered", "kernel", times["bucket"]),
-                ("flat", "fused", times["fused"]))}
+                   "bound_ms": bms, "bound_by": by, "launches": launches}
+            for name, launches, (ms, plain_ms, bms, by) in (
+                ("gathered", gathered, times["bucket"]),
+                ("flat", runs["fused"][3], times["fused"]))}
 
 
 # ---- phase 4 ------------------------------------------------------------------

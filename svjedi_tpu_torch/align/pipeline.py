@@ -14,9 +14,11 @@ JAX package's host modules.
 
 The numpy-only helpers are verbatim copies of the JAX module's (that module
 imports JAX, so they cannot be imported from it); each names its source and
-``tests/test_torch_align.py`` holds each copy to the original. The chunk
-loop counts with the port's own :func:`count_support_flat`, which the tests
-hold to the verbatim :func:`count_support`.
+``tests/test_torch_align.py`` holds each copy to the original. Where the
+port has its own version of such a helper, that version replaces the copy,
+and the tests hold it to the JAX function it reproduces: the chunk loop
+counts with :func:`count_support_flat` and audits with
+:func:`compute_winner_stats` on the chunk's resident buffers.
 """
 
 from __future__ import annotations
@@ -998,74 +1000,6 @@ def cross_cluster_prune(winners: Winners, reads: ReadSet) -> Winners:
             setattr(out, f, v[keep])
     return out
 
-# Copied verbatim from svjedi_tpu/align/pipeline.py:count_support.
-def count_support(
-    panel: Panel,
-    winners: Winners,
-    reads: ReadSet,
-    d_over: int = 100,
-    collect_audit: bool = True,
-    min_density: float = 0.0,
-) -> Tuple[Dict[str, List[int]], Dict[str, List[List[str]]]]:
-    """Per-(SV, allele) support counts from winning alignments.
-
-    Returns (counts, audit) where counts maps lookup tags to [ref, alt] and
-    audit mirrors the reference's informative_aln.json schema (GAF-like
-    lines per counted alignment, filter-alignments.py:163-166).
-
-    Two single-alignment-per-read invariants of the reference are imposed
-    on the primary set (minigraph emits ONE whole-graph alignment per read
-    locus, which cannot do either):
-
-    - dedup per (read, link, tag, allele): two kept fragments crossing the
-      SAME link count once (one link can carry several tags — co-located
-      SVs share breakpoint links — each of which counts);
-    - allele exclusivity per (read, SV): a read whose kept fragments cross
-      links of BOTH alleles of one SV (e.g. a ref fragment at one junction
-      of a long INV plus an alt fragment at the other) supports only the
-      allele of its best-scoring fragment.
-    """
-    counts: Dict[str, List[int]] = {}
-    audit: Dict[str, List[List[str]]] = {}
-    # Density gate (GenotypeConfig.min_count_density): winners whose score
-    # per target base falls below the threshold are discontinuity bridges
-    # and contribute no crossings (mirrored on-mesh in
-    # dist/count_merge.build_entry_table).
-    dense_ok = None
-    if min_density > 0 and len(winners.read):
-        span = np.maximum(1, winners.te - winners.ts + 1)
-        dense_ok = winners.score >= min_density * span
-    # (read, tag) -> list of qualifying (score, row, link, allele)
-    contrib: Dict[Tuple[int, str], List[Tuple[int, int, int, int]]] = {}
-    for i in range(len(winners.read)):
-        if dense_ok is not None and not dense_ok[i]:
-            continue
-        path = panel.paths[int(winners.path[i])]
-        ts, te = int(winners.ts[i]), int(winners.te[i])
-        for tag, allele, j, li in path.owned:
-            if (j - ts) >= d_over and (te - j + 1) >= d_over:
-                contrib.setdefault((int(winners.read[i]), tag), []).append(
-                    (int(winners.score[i]), i, li, allele)
-                )
-    for (read_id, tag), rows in contrib.items():
-        if len({a for (_, _, _, a) in rows}) > 1:
-            best = max(s for (s, _, _, _) in rows)
-            best_i = min(i for (s, i, _, _) in rows if s == best)
-            keep = next(a for (s, i, _, a) in rows if i == best_i)
-            rows = [r for r in rows if r[3] == keep]
-        seen: set = set()
-        for _score, i, li, allele in rows:
-            if (li, allele) in seen:
-                continue
-            seen.add((li, allele))
-            entry = counts.setdefault(tag, [0, 0])
-            entry[allele] += 1
-            if collect_audit:
-                line = _audit_line(panel, winners, reads, i)
-                audit.setdefault(tag, [[], []])[allele].append(line)
-    return counts, audit
-
-
 def pick_buckets(m: np.ndarray, buckets: Sequence[int]) -> np.ndarray:
     """:func:`_pick_bucket` of every element of ``m``: the first of the
     ascending ``buckets`` that holds it, else the last."""
@@ -1104,7 +1038,7 @@ def _fused_pieces(reads: ReadSet, winners: Winners, device_data, p_win,
     them: the oriented read's rows [a, b) in ``reads2`` (a reverse-strand
     read in the reverse-complement half), the target window from t0 on the
     winner's path in ``panel_padded``, valid in [max(ts, 0), min(te + 1,
-    path length)), where the host assembly clamps it."""
+    path length)), where the JAX package's host assembly clamps it."""
     from ..kernels.band_dp_stats import pack_pieces
 
     read = winners.read[p_win]
@@ -1125,47 +1059,35 @@ def compute_winner_stats(
     panel: Panel,
     winners: Winners,
     cfg: AlignConfig,
-    device: torch.device,
-    dp=None,
+    device_data,
     timings: Optional[Dict] = None,
-    device_data=None,
 ) -> None:
     """Fill ``winners.matches``/``blocklen`` by re-scoring winning spans.
 
     The audit pass: each winner's alignment rectangle [qs..qe] x [ts..te]
     is split into <= ``block_rows``-row pieces whose target windows follow
     the linearly-interpolated span diagonal, and each piece is re-run
-    through the stats-tracking banded DP on ``device`` (band doubled to
-    absorb residual drift). Summed piece stats give the exact-match count
-    and block length the reference's GAF consumers expect
-    (filter-alignments.py:193-196).
+    through the stats-tracking banded DP (band doubled to absorb residual
+    drift). Summed piece stats give the exact-match count and block length
+    the reference's GAF consumers expect (filter-alignments.py:193-196).
 
-    Each bucket's pieces go to the DP in one call (on a card the kernel A1
-    then fills it; the JAX package cuts them into slices of 4,096). The
-    pieces are independent and the sums integer, so the batching changes
-    no output.
+    The DP fetches each piece's windows itself from the chunk's resident
+    ``reads2`` and ``panel_padded`` (``device_data``, the chunk's
+    :class:`device.DeviceData`, on its device):
+    :func:`kernels.band_dp_stats.band_dp_stats_flat`, A1 on a card, a
+    gather and the plain version on the CPU. The host uploads five int32
+    offsets a piece. Each bucket's pieces go to the DP in one call (the
+    JAX package cuts them into slices of 4,096); the pieces are
+    independent and the sums integer, so the batching changes no output.
 
-    Where ``device_data`` (the chunk's :class:`device.DeviceData`, on
-    ``device``) is given and ``dp`` is not, the DP fetches each piece's
-    windows itself from the resident ``reads2`` and ``panel_padded``
-    (:func:`kernels.band_dp_stats.band_dp_stats_flat`): the host uploads
-    five int32 offsets a piece. Otherwise the host assembles the windows
-    and hands them to ``dp`` (default :func:`extend.band_dp_stats_batch`).
-    Both paths give the DP the same windows, so the same output.
-
-    ``timings`` gains the seconds of the piece table and bucket pick
-    (``audit_table_s``), of each bucket's windows or offsets built and
-    uploaded (``audit_assembly_s``) and of the DP calls up to their results
-    on the host (``audit_dp_s``), and the pieces and their rows handed to
-    the DP (``audit_pieces``, ``audit_rows``), of which the DP fetched
-    ``audit_pieces_fetched`` from device buffers.
+    ``timings`` gains the seconds of the piece table, its offsets and the
+    bucket pick (``audit_table_s``), of each bucket's offsets uploaded
+    (``audit_assembly_s``) and of the DP calls up to their results on the
+    host (``audit_dp_s``), and the pieces and their rows handed to the DP
+    (``audit_pieces``, ``audit_rows``).
     """
-    from ..kernels.band_dp_stats import band_dp_stats_flat
-    from .extend import band_dp_stats_batch
-
-    fused = device_data is not None and dp is None
-    if dp is None:
-        dp = band_dp_stats_batch
+    from ..kernels import band_dp_stats as a1
+    from . import device as dev
 
     n = len(winners.read)
     winners.matches = np.zeros(n, dtype=np.int64)
@@ -1179,6 +1101,7 @@ def compute_winner_stats(
     params = _dp_params(cfg)
     qspan = (winners.qe - winners.qs + 1).astype(np.int64)
     tspan = (winners.te - winners.ts + 1).astype(np.int64)
+    device = dev.device_of(device_data)
 
     # Piece table: (winner, piece q window [a, b), t window start).
     with span(timings, "audit_table_s", "align.audit.table"):
@@ -1186,69 +1109,22 @@ def compute_winner_stats(
         p_m = p_b - p_a
         order = np.argsort(p_m, kind="stable")
         bucket_of = pick_buckets(p_m[order], cfg.buckets)
-        if fused:
-            pieces = _fused_pieces(reads, winners, device_data, p_win, p_a,
-                                   p_b, p_t0)
+        pieces = _fused_pieces(reads, winners, device_data, p_win, p_a, p_b,
+                               p_t0)
     add(timings, "audit_pieces", len(p_m))
     add(timings, "audit_rows", p_m.sum())
-    add(timings, "audit_pieces_fetched", len(p_m) if fused else 0)
-    rc_cache: Dict[int, np.ndarray] = {}
-
-    def oriented_read(read_id: int, strand: int) -> np.ndarray:
-        if strand == 0:
-            return reads.seq(read_id)
-        if read_id not in rc_cache:
-            rc_cache[read_id] = revcomp_codes(reads.seq(read_id))
-        return rc_cache[read_id]
-
-    def assemble(sel, bucket):
-        """The host path's windows q (P, bucket), t (P, bucket + B2)."""
-        P = len(sel)
-        q = np.full((P, bucket), 4, dtype=np.int8)
-        t = np.full((P, bucket + B2), 4, dtype=np.int8)
-        for row, pi in enumerate(sel):
-            wi = int(p_win[pi])
-            a, b = int(p_a[pi]), int(p_b[pi])
-            window = oriented_read(
-                int(winners.read[wi]), int(winners.strand[wi])
-            )[a:b]
-            q[row, : len(window)] = window
-            # Target clamped to the winning span so the rectangle
-            # union stays exact.
-            seq = panel.paths[int(winners.path[wi])].seq
-            t_start = int(p_t0[pi])
-            src_lo = max(int(winners.ts[wi]), t_start, 0)
-            src_hi = min(
-                int(winners.te[wi]) + 1,
-                t_start + bucket + B2,
-                len(seq),
-            )
-            if src_hi > src_lo:
-                t[row, src_lo - t_start : src_hi - t_start] = seq[
-                    src_lo:src_hi
-                ]
-        return q, t
 
     score_sum = np.zeros(n, dtype=np.int64)
     n_diag_sum = np.zeros(n, dtype=np.int64)
     for bucket in sorted(set(bucket_of.tolist())):
         sel = order[bucket_of == bucket]
         with span(timings, "audit_assembly_s", "align.audit.assembly"):
-            if fused:
-                cols = torch.from_numpy(
-                    np.ascontiguousarray(pieces[:, sel])).to(device)
-            else:
-                q, t = assemble(sel, bucket)
+            cols = torch.from_numpy(
+                np.ascontiguousarray(pieces[:, sel])).to(device)
         with span(timings, "audit_dp_s", "align.audit.dp"):
-            if fused:
-                out = band_dp_stats_flat(
-                    device_data.reads2, device_data.panel_padded, cols,
-                    bucket, B2, params)
-            else:
-                out = dp(
-                    torch.from_numpy(q).to(device),
-                    torch.from_numpy(t).to(device), B2, params,
-                )
+            out = a1.band_dp_stats_flat(
+                device_data.reads2, device_data.panel_padded, cols, bucket,
+                B2, params)
             host = torch.stack(
                 [out["matches"], out["n_diag"], out["score"]]
             ).cpu().numpy().astype(np.int64)
@@ -1269,49 +1145,6 @@ def compute_winner_stats(
             "below the winning chain score",
             file=sys.stderr,
         )
-
-
-# Copied verbatim from svjedi_tpu/align/pipeline.py:_audit_line.
-def _audit_line(panel: Panel, w: Winners, reads: ReadSet, i: int) -> str:
-    from ..graph.build import REV
-
-    path = panel.paths[int(w.path[i])]
-    graph = panel.graph
-    read_id = int(w.read[i])
-    rlen = int(reads.lengths[read_id])
-    strand = int(w.strand[i])
-    qs, qe = int(w.qs[i]), int(w.qe[i])
-    if strand:  # report on the forward read
-        qs, qe = rlen - 1 - qe, rlen - 1 - qs
-    path_str = "".join(
-        ("<" if s == REV else ">") + graph.nodes[n].name for (n, s) in path.states
-    )
-    ts_full = int(w.ts[i]) + path.trim_left
-    te_full = int(w.te[i]) + path.trim_left
-    if w.matches is not None:
-        matches = int(w.matches[i])
-        blocklen = max(1, int(w.blocklen[i]))
-    else:  # stats pass skipped: degrade to span-derived bounds
-        matches = min(qe - qs + 1, te_full - ts_full + 1)
-        blocklen = max(qe - qs + 1, te_full - ts_full + 1)
-    mapq = int(w.mapq[i]) if w.mapq is not None else 60
-    return "\t".join(
-        [
-            reads.names[read_id],
-            str(rlen),
-            str(qs),
-            str(qe + 1),
-            "+-"[strand],
-            path_str,
-            str(path.full_len),
-            str(ts_full),
-            str(te_full + 1),
-            str(matches),
-            str(blocklen),
-            str(mapq),
-            f"id:f:{matches / blocklen:.6f}",
-        ]
-    ) + "\t"
 
 
 #: SV types of the count table's tags (:attr:`CountTable.tag_kind` codes),
@@ -1409,11 +1242,12 @@ def count_support_flat(
     min_density: float = 0.0,
     timings: Optional[Dict] = None,
 ) -> Tuple[Dict[str, List[int]], Dict[str, List[List[str]]]]:
-    """:func:`count_support` over a flat winner × owned-link table: the same
-    counts and audit lines, in the same dict and list order.
+    """``svjedi_tpu/align/pipeline.py:count_support`` over a flat winner ×
+    owned-link table: the same counts and audit lines, in the same dict and
+    list order.
 
     Entries are taken row by row, each row's path links in walk order, as
-    :func:`count_support` inserts them; its rules run per entry array:
+    ``count_support`` inserts them; its rules run per entry array:
     the density gate, the ``d_over`` overlap on both sides of the junction,
     allele exclusivity per (read, tag) (the allele of the first entry of the
     smallest row at the best score), then one count per (read, tag, link,
@@ -1508,7 +1342,8 @@ def count_support_flat(
 
 def _audit_lines(table: CountTable, w: Winners, reads: ReadSet,
                  rows: np.ndarray) -> List[str]:
-    """:func:`_audit_line` of each winner row in ``rows``, byte for byte."""
+    """``svjedi_tpu/align/pipeline.py:_audit_line`` of each winner row in
+    ``rows``, byte for byte."""
     read = w.read[rows].astype(np.int64)
     rlen = np.diff(reads.offsets)[read]
     strand = w.strand[rows].astype(np.int64)
@@ -1601,8 +1436,7 @@ NESTED_SPANS = (
 )
 #: Work handed to each step: chunks pulled, candidates seeded, winners
 #: counted; the forward DP's kept windows and Σ m, the reverse pass's
-#: winners and Σ (qe + 1), the audit's pieces and Σ rows, and of those
-#: pieces the ones A1 fetched from device buffers; the device
+#: winners and Σ (qe + 1), the audit's pieces and Σ rows; the device
 #: scan's positions (n_codes − k + 1), bases and read-offset entries; the
 #: count's winner × owned entries, crossings counted and audit lines
 #: formatted (:func:`count_support_flat`); and the all-types work: panel
@@ -1612,7 +1446,6 @@ NESTED_SPANS = (
 WORK_COUNTERS = (
     "n_chunks", "n_candidates", "n_winners", "dp_problems", "dp_rows",
     "rev_problems", "rev_rows", "audit_pieces", "audit_rows",
-    "audit_pieces_fetched",
     "scan_positions", "scan_codes", "scan_offsets", "count_entries",
     "count_crossings", "audit_line_rows", "decoy_suppressed",
     "count_crossings_inv", "count_crossings_bnd", "dp_rows_inv_bnd",
@@ -1716,9 +1549,7 @@ def align_and_count(
         if collect_audit:
             with span(None, None, "align.audit"):
                 compute_winner_stats(chunk, panel, winners, align_cfg,
-                                     dev.device_of(disp.device_data),
-                                     timings=timings,
-                                     device_data=disp.device_data)
+                                     disp.device_data, timings=timings)
         with span(timings, "count_support_s", "align.count_support"):
             chunk_counts, chunk_audit = count_support_flat(
                 panel, winners, chunk, genotype_cfg.d_over, collect_audit,
@@ -1739,15 +1570,30 @@ def align_and_count(
             add(timings, "winners_cross_chrom", count_table(
                 panel).path_cross_chrom[winners.path].sum())
 
-    def process_one(start, chunk, disp):
-        """Full single-chunk path (the per-chunk retry unit)."""
-        (host_rows,) = collect_outs([disp])
-        winners, win = finalize_chunk(chunk, index, align_cfg, disp, host_rows)
-        dispatch_rev(align_cfg, disp, winners, win)
-        count_work(disp, "rev_problems", "rev_rows", "rev_rows_inv_bnd")
-        (rev_rows,) = collect_rev([disp])
-        patch_rev(align_cfg, disp, winners, rev_rows)
-        accumulate(start, chunk, disp, winners)
+    def finish(items, fetched):
+        """The flush's tail for ``items`` ((start, chunk, disp) each) and
+        their fetched forward rows: the winners, the reverse pass (one
+        dispatch round and one bulk fetch for all; nothing for one-pass
+        rows), the prunes, the audit and the count."""
+        finalized = []
+        with span(timings, "rev_disp_s", "align.rev"):
+            for (start, chunk, disp), host_rows in zip(items, fetched):
+                with span(timings, "finalize_s", "align.finalize"):
+                    winners, win = finalize_chunk(
+                        chunk, index, align_cfg, disp, host_rows
+                    )
+                dispatch_rev(align_cfg, disp, winners, win)
+                count_work(disp, "rev_problems", "rev_rows",
+                           "rev_rows_inv_bnd")
+                finalized.append(winners)
+        with span(timings, "rev_exec_s", "align.fetch_rev"):
+            rev_rows_all = collect_rev([d for (_, _, d) in items])
+        with span(timings, "count_s", "align.count"):
+            for (start, chunk, disp), winners, rev_rows in zip(
+                items, finalized, rev_rows_all
+            ):
+                patch_rev(align_cfg, disp, winners, rev_rows)
+                accumulate(start, chunk, disp, winners)
 
     def flush_retry():
         """Per-chunk recovery: the batched fetch failed, so each pending
@@ -1769,7 +1615,9 @@ def align_and_count(
                     )
                     count_work(d2, "dp_problems", "dp_rows",
                                "dp_rows_inv_bnd")
-                    process_one(start, chunk, d2)
+                    with span(timings, "fwd_exec_s", "align.fetch"):
+                        fetched = collect_outs([d2])
+                    finish([(start, chunk, d2)], fetched)
                     break
                 except Exception:
                     if attempt:
@@ -1796,28 +1644,8 @@ def align_and_count(
                 timings["n_retries"] = timings.get("n_retries", 0) + 1
             flush_retry()
             return
-        # Pass 2: winner starts via the v3 reverse pass (one more dispatch
-        # round + one bulk fetch for all chunks; nothing for one-pass rows).
-        finalized = []
-        with span(timings, "rev_disp_s", "align.rev"):
-            for (start, chunk, disp), host_rows in zip(pending, per_chunk):
-                with span(timings, "finalize_s", "align.finalize"):
-                    winners, win = finalize_chunk(
-                        chunk, index, align_cfg, disp, host_rows
-                    )
-                dispatch_rev(align_cfg, disp, winners, win)
-                count_work(disp, "rev_problems", "rev_rows",
-                           "rev_rows_inv_bnd")
-                finalized.append(winners)
-        with span(timings, "rev_exec_s", "align.fetch_rev"):
-            rev_rows_all = collect_rev([d for (_, _, d) in pending])
-        with span(timings, "count_s", "align.count"):
-            for (start, chunk, disp), winners, rev_rows in zip(
-                pending, finalized, rev_rows_all
-            ):
-                patch_rev(align_cfg, disp, winners, rev_rows)
-                accumulate(start, chunk, disp, winners)
-            pending.clear()
+        finish(pending, per_chunk)
+        pending.clear()
         with span(timings, "trim_s", "align.trim"):
             _malloc_trim()
 

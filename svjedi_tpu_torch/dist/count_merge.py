@@ -1,8 +1,9 @@
 """Count merge on a (data, graph) mesh: winners → per-(SV, allele) counts.
 
 Counterpart of ``svjedi_tpu/dist/count_merge.py``, the counting engine of
-``run --graph-shards``. It reproduces the host reduction
-``align/pipeline.count_support`` exactly (junction coverage in path
+``run --graph-shards``. It reproduces the host count
+(``svjedi_tpu/align/pipeline.py:count_support``, in the port
+``align/pipeline.py:count_support_flat``) exactly (junction coverage in path
 coordinates, allele exclusivity per (read, SV), and per-(read, link, tag,
 allele) dedup) as segment reductions over a flattened winner x owned-link
 table. The host computes the integer segment labels (the numpy part below,
@@ -327,7 +328,7 @@ def make_mesh_count_step(
     Entries split equally over ``data``; graph shard (d, g) counts, on
     ``devices[d, g]``, data shard d's entries in its disjoint tag range;
     the matrices are summed on ``devices[0, 0]``: the exact global (n_tags,
-    2) int32 matrix. Byte-equal to align/pipeline.count_support (tested).
+    2) int32 matrix. Byte-equal to the host count (tested).
     """
     n_data, n_graph = mesh.devices.shape
     tags_per = -(-n_tags // n_graph)
@@ -360,9 +361,9 @@ def mesh_count_support(
 ) -> Dict[str, List[int]]:
     """Counts dict from merged winners via the mesh count step.
 
-    Drop-in replacement for the host count_support reduction (audit lines
-    excluded; those stay host-side); tags absent from every winner are
-    omitted, matching the host dict's setdefault behavior.
+    Drop-in replacement for the host count, ``count_support_flat`` (audit
+    lines excluded; those stay host-side); tags absent from every winner
+    are omitted, matching the host dict's setdefault behavior.
     """
     if tags is None:
         tags = sorted({t for p in panel.paths for t, *_ in p.owned})

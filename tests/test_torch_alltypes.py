@@ -8,8 +8,8 @@ genotype VCF byte for byte; the port's counts are ``correct`` against the
 plain reference (``benchmark/reference_simgenome_alltypes.py``) under the
 cell's limits; the reference counts hand-built reads of each BND flavour,
 an intra-chromosomal BND and an INV as SVJedi-graph does; the align
-stage's all-types counters add up; and the audit's fused fetch gives the
-host path's and JAX's audit fields on winners of INV and BND paths.
+stage's all-types counters add up; and the audit's fused fetch gives
+JAX's audit fields on winners of INV and BND paths.
 """
 
 import dataclasses
@@ -191,10 +191,10 @@ def aligned(bundle):
 
 
 @pytest.mark.parametrize("block_rows", [1536, 700])
-def test_audit_fused_fetch_matches_host_and_jax(aligned, block_rows):
+def test_audit_fused_fetch_matches_jax(aligned, block_rows):
     """``compute_winner_stats`` with the chunk's buffers (the DP fetching
-    every piece from them) equals the host path and JAX's, on winners of
-    both strands on INV and BND paths and on paths across chromosomes."""
+    every piece from them) equals JAX's, on winners of both strands on INV
+    and BND paths and on paths across chromosomes."""
     reads, panel, winners = aligned
     table = tpipe.count_table(panel)
     on = table.path_inv_bnd[winners.path]
@@ -208,21 +208,16 @@ def test_audit_fused_fetch_matches_host_and_jax(aligned, block_rows):
                         offsets=reads.offsets)
     jpipe.compute_winner_stats(jreads, panel, jw,
                                JaxAlignConfig(block_rows=block_rows))
-    for fused in (False, True):
-        tw = dataclasses.replace(winners)
-        dd = (tdev.upload(reads.codes, panel, CPU)
-              if fused else None)
-        timings = {}
-        tpipe.compute_winner_stats(reads, panel, tw,
-                                   AlignConfig(block_rows=block_rows),
-                                   CPU, timings=timings,
-                                   device_data=dd)
-        assert timings["audit_pieces"] > len(tw.read)
-        assert timings["audit_pieces_fetched"] == (
-            timings["audit_pieces"] if fused else 0)
-        for f in ("matches", "blocklen", "rescore_deficit", "rescore_flag"):
-            np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f),
-                                          err_msg=f"{f} fused={fused}")
+    tw = dataclasses.replace(winners)
+    timings = {}
+    tpipe.compute_winner_stats(reads, panel, tw,
+                               AlignConfig(block_rows=block_rows),
+                               tdev.upload(reads.codes, panel, CPU),
+                               timings=timings)
+    assert timings["audit_pieces"] > len(tw.read)
+    for f in ("matches", "blocklen", "rescore_deficit", "rescore_flag"):
+        np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f),
+                                      err_msg=f)
 
 
 # -- hand-built cases ---------------------------------------------------------

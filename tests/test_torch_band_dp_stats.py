@@ -6,13 +6,13 @@ plain version ``kernels/band_dp_stats.py:band_dp_stats_ref``) must equal
 all five outputs: at the audit's bands (256, and 512 for ``cfg.band`` 256)
 and buckets, on ragged pieces, tied maxima, inputs where the (score, row)
 end rule and the one-pass kernels' per-cell rule part, and scores at which
-every row must run. A numpy model of the kernel's row skip, and
-``compute_winner_stats`` with whole-bucket batches, are held to JAX too.
-So is ``compute_winner_stats``' fused path, in which the DP fetches its
+every row must run. A numpy model of the kernel's row skip is held to JAX
+too, and so is ``compute_winner_stats``, in which the DP fetches its
 windows from the chunk's uploaded buffers (``band_dp_stats_flat``; on the
-CPU a gather and the plain version), beside the host path, whose piece
-table it shares: the vectorised table equals the per-piece loop it
-replaced, and the fetch equals windows cut by hand from the buffers.
+CPU a gather and the plain version), with whole-bucket and sliced
+batches and at several piece lengths: its vectorised piece table equals
+the per-piece loop it replaced, and the fetch equals windows cut by hand
+from the buffers.
 The CUDA kernel is held against its plain version on the card
 (``chip_smoke.py`` phase 2e and the gpu-marked tests at the end).
 """
@@ -275,56 +275,46 @@ def _audit_case(pkg_readset, pkg_winners):
     return rs, panel, w
 
 
-def _sliced_dp(pieces):
-    """The stats DP run on slices of ``pieces`` rows, results rejoined."""
-    def dp(q, t, band, params):
-        outs = [band_dp_stats_batch(q[lo:lo + pieces], t[lo:lo + pieces],
-                                    band, params)
-                for lo in range(0, q.shape[0], pieces)]
+def _sliced_flat(pieces):
+    """The fused-fetch stats DP run on column slices of ``pieces`` pieces,
+    results rejoined; ``.seen`` collects the pieces of each call."""
+    real = a1.band_dp_stats_flat
+
+    def flat(reads2, panel_padded, cols, bucket, band, params):
+        flat.seen.append(cols.shape[1])
+        outs = [real(reads2, panel_padded,
+                     cols[:, lo:lo + pieces].contiguous(), bucket, band,
+                     params)
+                for lo in range(0, cols.shape[1], pieces)]
         return {k: torch.cat([o[k] for o in outs]) for k in KEYS}
-    return dp
+    flat.seen = []
+    return flat
 
 
 @pytest.mark.parametrize("pieces", [None, 4096, 3])
-def test_compute_winner_stats_batching_matches_jax(pieces):
+def test_compute_winner_stats_batching_matches_jax(pieces, monkeypatch):
     """Whole-bucket calls (``compute_winner_stats``'s rule), 4,096-piece
     calls (the JAX package's slices) and 3-piece calls all give JAX's
     4,096-piece result."""
-    dp = None if pieces is None else _sliced_dp(pieces)
+    if pieces is not None:
+        sliced = _sliced_flat(pieces)
+        monkeypatch.setattr(a1, "band_dp_stats_flat", sliced)
     jrs, panel, jw = _audit_case(JaxReadSet, jpipe.Winners)
     trs, _, tw = _audit_case(ReadSet, tpipe.Winners)
     jpipe.compute_winner_stats(jrs, panel, jw, JaxAlignConfig(block_rows=700))
     timings = {}
     launches = a1.launches
     tpipe.compute_winner_stats(trs, panel, tw, AlignConfig(block_rows=700),
-                               CPU, dp=dp, timings=timings)
+                               tdev.upload(trs.codes, panel, CPU),
+                               timings=timings)
     assert a1.launches == launches
+    if pieces is not None:
+        assert sum(sliced.seen) == timings["audit_pieces"]
     assert timings["audit_assembly_s"] > 0 and timings["audit_dp_s"] > 0
     assert (jw.matches > 0).all()
     for f in ("matches", "blocklen", "rescore_deficit", "rescore_flag"):
         np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f),
                                       err_msg=f)
-
-
-def test_compute_winner_stats_takes_another_dp():
-    """``dp=`` replaces the stats DP (chip_smoke.py runs the plain version
-    through it on the card), also where the chunk's buffers are given: the
-    host assembles the windows then, and no piece is fetched."""
-    trs, panel, tw = _audit_case(ReadSet, tpipe.Winners)
-    calls = []
-
-    def dp(q, t, band, params):
-        calls.append((tuple(q.shape), band))
-        return a1.band_dp_stats_ref(q, t, band, params)
-
-    timings = {}
-    tpipe.compute_winner_stats(trs, panel, tw, AlignConfig(block_rows=700),
-                               CPU, dp=dp, timings=timings,
-                               device_data=tdev.upload(trs.codes, panel, CPU))
-    assert {b for _, b in calls} == {256}
-    assert {s[1] for s, _ in calls} == {512, 1024}
-    assert timings["audit_pieces"] == sum(s[0] for s, _ in calls) > 0
-    assert timings["audit_pieces_fetched"] == 0
 
 
 def _loop_piece_table(winners, block_rows: int, band: int):
@@ -388,27 +378,25 @@ def test_pick_buckets_equals_pick_bucket():
         [tpipe._pick_bucket(int(v), buckets) for v in m])
 
 
-@pytest.mark.parametrize("block_rows", [700, 1536])
-def test_compute_winner_stats_fused_matches_host_and_jax(block_rows):
+@pytest.mark.parametrize("block_rows", [250, 700, 1536])
+def test_compute_winner_stats_fused_matches_jax(block_rows):
     """With the chunk's buffers the DP fetches every piece from them (both
     strands: half the reads are reverse-complemented), and the audit's
-    fields equal the host path's and JAX's."""
+    fields equal JAX's, also where the winners are cut into many short
+    pieces."""
     jrs, panel, jw = _audit_case(JaxReadSet, jpipe.Winners)
     jpipe.compute_winner_stats(jrs, panel, jw,
                                JaxAlignConfig(block_rows=block_rows))
-    for fused in (False, True):
-        trs, _, tw = _audit_case(ReadSet, tpipe.Winners)
-        dd = tdev.upload(trs.codes, panel, CPU) if fused else None
-        timings = {}
-        tpipe.compute_winner_stats(trs, panel, tw,
-                                   AlignConfig(block_rows=block_rows), CPU,
-                                   timings=timings, device_data=dd)
-        assert timings["audit_pieces"] > len(tw.read) or block_rows == 1536
-        assert timings["audit_pieces_fetched"] == (
-            timings["audit_pieces"] if fused else 0)
-        for f in ("matches", "blocklen", "rescore_deficit", "rescore_flag"):
-            np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f),
-                                          err_msg=f"{f} fused={fused}")
+    trs, _, tw = _audit_case(ReadSet, tpipe.Winners)
+    timings = {}
+    tpipe.compute_winner_stats(trs, panel, tw,
+                               AlignConfig(block_rows=block_rows),
+                               tdev.upload(trs.codes, panel, CPU),
+                               timings=timings)
+    assert timings["audit_pieces"] > len(tw.read) or block_rows == 1536
+    for f in ("matches", "blocklen", "rescore_deficit", "rescore_flag"):
+        np.testing.assert_array_equal(getattr(tw, f), getattr(jw, f),
+                                      err_msg=f)
 
 
 def _flat_case(seed: int, M: int, band: int):

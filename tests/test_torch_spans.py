@@ -180,8 +180,6 @@ def test_job_writes_every_key(job):
         elif key != "decoy_suppressed":
             assert t[key] > 0, key
     assert t["decoy_suppressed"] >= 0
-    # The chunk's buffers reach the audit, so A1 fetched every piece.
-    assert t["audit_pieces_fetched"] == t["audit_pieces"]
 
 
 def test_nested_spans_fit_in_their_parents(job):
