@@ -17,8 +17,10 @@ imports JAX, so they cannot be imported from it); each names its source and
 ``tests/test_torch_align.py`` holds each copy to the original. Where the
 port has its own version of such a helper, that version replaces the copy,
 and the tests hold it to the JAX function it reproduces: the chunk loop
-counts with :func:`count_support_flat` and audits with
-:func:`compute_winner_stats` on the chunk's resident buffers.
+elects winners in numpy rounds (:func:`elect`, in :func:`finalize_chunk`,
+:func:`prune_secondaries` and :func:`cross_cluster_prune`), counts with
+:func:`count_support_flat` and audits with :func:`compute_winner_stats` on
+the chunk's resident buffers.
 """
 
 from __future__ import annotations
@@ -318,6 +320,10 @@ class ChunkDispatch:
     rev_rows: int = 0
     dp_rows_inv_bnd: int = 0
     rev_rows_inv_bnd: int = 0
+    #: the primary set's election (set by finalize_chunk): alive chains
+    #: elected and the election's rounds
+    elect_rows: int = 0
+    elect_rounds: int = 0
     #: per panel path, whether it owns an INV or BND link
     #: (:attr:`CountTable.path_inv_bnd`, set by dispatch_chunk)
     path_inv_bnd: Optional[np.ndarray] = None
@@ -527,7 +533,85 @@ def compute_mapq(
     f *= np.minimum(1.0, support.astype(np.float64) / 10.0)
     return np.clip(np.floor(60.0 * f + 0.5), 0, 60).astype(np.int64)
 
-# Copied verbatim from svjedi_tpu/align/pipeline.py:finalize_chunk.
+
+def elect(group: np.ndarray, lo: np.ndarray, hi: np.ndarray,
+          eligible: Optional[np.ndarray] = None,
+          cap: int = 0) -> Tuple[np.ndarray, np.ndarray, int]:
+    """One greedy mask_level election (minimap2's rule) over rows given in
+    the order the greedy loop visits them, ``group`` nondecreasing.
+
+    A visited row is kept unless a row already kept in its group covers at
+    least half of its own span: on half-open ``[lo, hi)``, with ``ov =
+    min(hi, hi_k) - max(lo, lo_k)`` and ``span = max(1, hi - lo)``, the rule
+    ``ov >= 0.5 * span`` is ``2 * ov >= span`` in integers. Rows outside
+    ``eligible`` are not visited. With ``cap``, a group stops at its
+    ``cap``-th kept row: its later rows are not visited.
+
+    Returns ``(keep, blocker, rounds)``: ``keep`` per row; ``blocker`` per
+    visited, rejected row the index of the first kept row of its group, in
+    kept order, that masks it, and -1 elsewhere; and the numpy rounds
+    taken. Each round keeps the first undecided row of every group (the
+    rounds before tested it against every row kept so far) and rejects
+    the undecided rows of the group that it masks. So there are as many
+    rounds as the most rows a group keeps, each round's work is the rows
+    still undecided, and the result is the sequential loop's.
+    """
+    n = len(group)
+    keep = np.zeros(n, dtype=bool)
+    blocker = np.full(n, -1, dtype=np.int64)
+    lo = np.asarray(lo, dtype=np.int64)
+    hi = np.asarray(hi, dtype=np.int64)
+    span = np.maximum(1, hi - lo)
+    live = np.arange(n) if eligible is None else np.flatnonzero(eligible)
+    rounds = 0
+    while len(live):
+        rounds += 1
+        g = group[live]
+        head = np.ones(len(live), dtype=bool)
+        head[1:] = g[1:] != g[:-1]
+        heads = live[head]
+        lead = heads[np.cumsum(head) - 1]
+        keep[heads] = True
+        ov = np.minimum(hi[live], hi[lead]) - np.maximum(lo[live], lo[lead])
+        masked = (2 * ov >= span[live]) & ~head
+        blocker[live[masked]] = lead[masked]
+        live = live[~(masked | head)]
+        if rounds == cap:
+            # Each group left holds cap kept rows, the last of them in
+            # ``heads``: the rows after it were never visited.
+            ends = np.searchsorted(group, group[heads], side="right")
+            after = np.zeros(n + 1, dtype=np.int64)
+            np.add.at(after, heads + 1, 1)
+            np.add.at(after, ends, -1)
+            blocker[np.cumsum(after[:n]) > 0] = -1
+            break
+    return keep, blocker, rounds
+
+
+def _keep_winners(winners: Winners, keep: np.ndarray) -> Winners:
+    """``winners``' rows where ``keep`` holds (``winners`` itself where it
+    holds everywhere), the optional fields that are set included."""
+    if keep.all():
+        return winners
+    out = Winners(
+        *[
+            getattr(winners, f)[keep]
+            for f in (
+                "read", "cluster", "path", "strand", "score",
+                "qs", "qe", "ts", "te",
+            )
+        ]
+    )
+    for f in ("matches", "blocklen", "mapq", "anchor_ts", "anchor_te",
+              "rescore_deficit", "rescore_flag"):
+        v = getattr(winners, f)
+        if v is not None:
+            setattr(out, f, v[keep])
+    return out
+
+
+# The rules of svjedi_tpu/align/pipeline.py:finalize_chunk, the primary set
+# elected by :func:`elect`.
 def finalize_chunk(
     reads: ReadSet,
     index: PanelIndex,
@@ -654,47 +738,26 @@ def finalize_chunk(
     key = a_read * (cluster_all.max() + 1) + cluster_all[rep]
     a_path = cands.path[rep].astype(np.int64)
     order2 = np.lexsort((alive, -chain_score[alive], key))
-    key_s = key[order2]
-    grp_start = np.ones(len(order2), dtype=bool)
-    grp_start[1:] = key_s[1:] != key_s[:-1]
-    kept_rows: List[int] = []
-    #: per kept row: best SAME-PATH challenger chain score rejected for
-    #: >=50% read-interval overlap with it (repeat-shifted placement on the
-    #: same haplotype sequence). Cross-path overlap rejections are allele
-    #: competition — the graph aligner resolves those at full confidence
-    #: (minigraph maps against the whole graph and reports one path), so
-    #: they must NOT depress mapq.
-    kept_s2: List[int] = []
+    # A rejected row raises s2 of the first kept chain that masks it where
+    # both lie on the same path: the best SAME-PATH challenger rejected for
+    # >=50% read-interval overlap (repeat-shifted placement on the same
+    # haplotype sequence). Cross-path overlap rejections are allele
+    # competition — the graph aligner resolves those at full confidence
+    # (minigraph maps against the whole graph and reports one path), so
+    # they must NOT depress mapq. A group stops at MAX_PRIMARY kept chains.
     MAX_PRIMARY = 8
-    starts = np.flatnonzero(grp_start)
-    bounds = np.append(starts, len(order2))
-    for gi in range(len(starts)):
-        kept_lo: List[int] = []
-        kept_hi: List[int] = []
-        kept_base = len(kept_rows)
-        for row in order2[bounds[gi] : bounds[gi + 1]]:
-            if len(kept_lo) >= MAX_PRIMARY:
-                break
-            lo, hi = int(a_qlo[row]), int(a_qhi[row])
-            span = max(1, hi - lo)
-            ok = True
-            for ki, (klo, khi) in enumerate(zip(kept_lo, kept_hi)):
-                ov = min(hi, khi) - max(lo, klo)
-                if ov >= 0.5 * span:
-                    ok = False
-                    kept_idx = kept_base + ki
-                    if a_path[row] == a_path[kept_rows[kept_idx]]:
-                        kept_s2[kept_idx] = max(
-                            kept_s2[kept_idx],
-                            int(chain_score[alive[row]]),
-                        )
-                    break
-            if ok:
-                kept_lo.append(lo)
-                kept_hi.append(hi)
-                kept_rows.append(row)
-                kept_s2.append(0)
-    win_chain = alive[np.asarray(kept_rows, dtype=np.int64)]
+    keep, blocker, rounds = elect(
+        key[order2], a_qlo[order2], a_qhi[order2], cap=MAX_PRIMARY
+    )
+    disp.elect_rows = len(order2)
+    disp.elect_rounds = rounds
+    kept_rows = order2[keep]
+    kept_s2 = np.zeros(len(kept_rows), dtype=np.int64)
+    rej = np.flatnonzero(blocker >= 0)
+    rej = rej[a_path[order2[rej]] == a_path[order2[blocker[rej]]]]
+    np.maximum.at(kept_s2, (np.cumsum(keep) - 1)[blocker[rej]],
+                  chain_score[alive[order2[rej]]])
+    win_chain = alive[kept_rows]
 
     win = first_blk[win_chain]
     last = last_blk[win_chain]
@@ -715,7 +778,7 @@ def finalize_chunk(
     )
     winners.mapq = compute_mapq(
         score=chain_score[win_chain],
-        s2=np.asarray(kept_s2, dtype=np.int64),
+        s2=kept_s2,
         support=cands.n_anchors[win].astype(np.int64),
         dec_other=cands.dec_other[win].astype(np.int64),
         dec_same=cands.dec_same[win].astype(np.int64),
@@ -868,9 +931,11 @@ def align_candidates(
     return prune_secondaries(winners, reads, cfg)
 
 
-# Copied verbatim from svjedi_tpu/align/pipeline.py:prune_secondaries.
+# The rules of svjedi_tpu/align/pipeline.py:prune_secondaries, the overlap
+# prune elected by :func:`elect`.
 def prune_secondaries(
-    winners: Winners, reads: ReadSet, cfg: AlignConfig = None
+    winners: Winners, reads: ReadSet, cfg: AlignConfig = None, *,
+    timings: Optional[Dict] = None,
 ) -> Winners:
     """Score-density floor + secondary overlap prune (post-rev).
 
@@ -884,7 +949,10 @@ def prune_secondaries(
     hit cap, thinning anchors exactly where repeat-shifted junk lives), so
     a repeat-shifted secondary can slip past it. With the reverse pass
     done, real [qs..qe] spans exist — re-run the mask_level rule per
-    (read, cluster) on them before counting.
+    (read, cluster) on them before counting, by score, the dense rows only.
+
+    ``timings`` (a dict, or None) gains the rows elected (``elect_rows``)
+    and the election's rounds (``elect_rounds``).
     """
     n = len(winners.read)
     if n == 0:
@@ -894,54 +962,26 @@ def prune_secondaries(
     q_hi = np.where(winners.strand == 0, winners.qe, rlen - 1 - winners.qs)
     key = winners.read * (winners.cluster.max() + 1) + winners.cluster
     order = np.lexsort((np.arange(n), -winners.score, key))
-    keep = np.zeros(n, dtype=bool)
-    dense = np.ones(n, dtype=bool)
+    dense = None
     if cfg is not None:
         span = np.maximum(
             winners.qe - winners.qs + 1, winners.te - winners.ts + 1
         )
-        dense = winners.score * 1000 >= cfg.min_density_millis * span
-    key_s = key[order]
-    starts = np.flatnonzero(
-        np.concatenate([[True], key_s[1:] != key_s[:-1]])
-    )
-    bounds = np.append(starts, n)
-    for gi in range(len(starts)):
-        kept: List[Tuple[int, int]] = []
-        for row in order[bounds[gi] : bounds[gi + 1]]:
-            if not dense[row]:
-                continue
-            lo, hi = int(q_lo[row]), int(q_hi[row])
-            span = max(1, hi - lo + 1)
-            ok = True
-            for klo, khi in kept:
-                ov = min(hi, khi) - max(lo, klo) + 1
-                if ov >= 0.5 * span:
-                    ok = False
-                    break
-            if ok:
-                kept.append((lo, hi))
-                keep[row] = True
-    if keep.all():
-        return winners
-    out = Winners(
-        *[
-            getattr(winners, f)[keep]
-            for f in (
-                "read", "cluster", "path", "strand", "score",
-                "qs", "qe", "ts", "te",
-            )
-        ]
-    )
-    for f in ("matches", "blocklen", "mapq", "anchor_ts", "anchor_te",
-              "rescore_deficit", "rescore_flag"):
-        v = getattr(winners, f)
-        if v is not None:
-            setattr(out, f, v[keep])
-    return out
+        dense = (winners.score * 1000 >= cfg.min_density_millis * span)[order]
+    # [lo, hi] closed is [lo, hi + 1) half-open: the same overlap and span.
+    keep_s, _, rounds = elect(key[order], q_lo[order], q_hi[order] + 1,
+                              eligible=dense)
+    add(timings, "elect_rows", n)
+    add(timings, "elect_rounds", rounds)
+    keep = np.zeros(n, dtype=bool)
+    keep[order] = keep_s
+    return _keep_winners(winners, keep)
 
-# Copied verbatim from svjedi_tpu/align/pipeline.py:cross_cluster_prune.
-def cross_cluster_prune(winners: Winners, reads: ReadSet) -> Winners:
+
+# The rules of svjedi_tpu/align/pipeline.py:cross_cluster_prune, the
+# read-level prune elected by :func:`elect`.
+def cross_cluster_prune(winners: Winners, reads: ReadSet, *,
+                        timings: Optional[Dict] = None) -> Winners:
     """Read-level primary selection across ALL clusters, density-ranked.
 
     minigraph picks one primary alignment per read segment over the whole
@@ -953,6 +993,9 @@ def cross_cluster_prune(winners: Winners, reads: ReadSet) -> Winners:
     bundle, tools/parity_experiments.py) under the mask_level 0.5 overlap
     rule in forward-read coordinates. Fragments at different loci cover
     different read intervals and never mask each other.
+
+    ``timings`` (a dict, or None) gains the rows elected (``elect_rows``)
+    and the election's rounds (``elect_rounds``).
     """
     n = len(winners.read)
     if n == 0:
@@ -965,40 +1008,16 @@ def cross_cluster_prune(winners: Winners, reads: ReadSet) -> Winners:
         np.maximum(q_hi - q_lo + 1, winners.te - winners.ts + 1),
     )
     dens = winners.score / span
-    keep = np.zeros(n, dtype=bool)
     order = np.lexsort((np.arange(n), -dens, winners.read))
-    read_s = winners.read[order]
-    starts = np.flatnonzero(
-        np.concatenate([[True], read_s[1:] != read_s[:-1]])
-    )
-    bounds = np.append(starts, n)
-    for gi in range(len(starts)):
-        kept: List[Tuple[int, int]] = []
-        for row in order[bounds[gi] : bounds[gi + 1]]:
-            lo, hi = int(q_lo[row]), int(q_hi[row])
-            sp = max(1, hi - lo + 1)
-            if all(
-                min(hi, kh) - max(lo, kl) + 1 < 0.5 * sp for kl, kh in kept
-            ):
-                kept.append((lo, hi))
-                keep[row] = True
-    if keep.all():
-        return winners
-    out = Winners(
-        *[
-            getattr(winners, f)[keep]
-            for f in (
-                "read", "cluster", "path", "strand", "score",
-                "qs", "qe", "ts", "te",
-            )
-        ]
-    )
-    for f in ("matches", "blocklen", "mapq", "anchor_ts", "anchor_te",
-              "rescore_deficit", "rescore_flag"):
-        v = getattr(winners, f)
-        if v is not None:
-            setattr(out, f, v[keep])
-    return out
+    # [lo, hi] closed is [lo, hi + 1) half-open: the same overlap and span.
+    keep_s, _, rounds = elect(winners.read[order], q_lo[order],
+                              q_hi[order] + 1)
+    add(timings, "elect_rows", n)
+    add(timings, "elect_rounds", rounds)
+    keep = np.zeros(n, dtype=bool)
+    keep[order] = keep_s
+    return _keep_winners(winners, keep)
+
 
 def pick_buckets(m: np.ndarray, buckets: Sequence[int]) -> np.ndarray:
     """:func:`_pick_bucket` of every element of ``m``: the first of the
@@ -1442,14 +1461,16 @@ NESTED_SPANS = (
 #: formatted (:func:`count_support_flat`); and the all-types work: panel
 #: candidates the decoy removed, crossings counted on INV and on BND links,
 #: the forward and reverse DP rows on paths that own an INV or BND link,
-#: and winners on paths whose walk spans two chromosomes.
+#: and winners on paths whose walk spans two chromosomes; the rows entering
+#: the three mask_level elections (:func:`elect`: ``finalize_chunk``'s
+#: primary set and both prunes) and the rounds they took.
 WORK_COUNTERS = (
     "n_chunks", "n_candidates", "n_winners", "dp_problems", "dp_rows",
     "rev_problems", "rev_rows", "audit_pieces", "audit_rows",
     "scan_positions", "scan_codes", "scan_offsets", "count_entries",
     "count_crossings", "audit_line_rows", "decoy_suppressed",
     "count_crossings_inv", "count_crossings_bnd", "dp_rows_inv_bnd",
-    "rev_rows_inv_bnd", "winners_cross_chrom",
+    "rev_rows_inv_bnd", "winners_cross_chrom", "elect_rows", "elect_rounds",
 )
 
 
@@ -1544,8 +1565,9 @@ def align_and_count(
 
     def accumulate(start, chunk, disp, winners):
         with span(timings, "prune_s", "align.prune"):
-            winners = prune_secondaries(winners, chunk, align_cfg)
-            winners = cross_cluster_prune(winners, chunk)
+            winners = prune_secondaries(winners, chunk, align_cfg,
+                                        timings=timings)
+            winners = cross_cluster_prune(winners, chunk, timings=timings)
         if collect_audit:
             with span(None, None, "align.audit"):
                 compute_winner_stats(chunk, panel, winners, align_cfg,
@@ -1582,6 +1604,7 @@ def align_and_count(
                     winners, win = finalize_chunk(
                         chunk, index, align_cfg, disp, host_rows
                     )
+                count_work(disp, "elect_rows", "elect_rounds")
                 dispatch_rev(align_cfg, disp, winners, win)
                 count_work(disp, "rev_problems", "rev_rows",
                            "rev_rows_inv_bnd")

@@ -38,8 +38,8 @@ WINNER_FIELDS = ("read", "cluster", "path", "strand", "score", "qs", "qe",
                  "ts", "te", "mapq", "anchor_ts", "anchor_te")
 COPIED = (
     "Winners", "_malloc_trim", "revcomp_codes", "_pick_bucket",
-    "candidate_windows", "build_problem_batches", "candidate_layout", "compute_mapq", "finalize_chunk",
-    "prune_secondaries", "cross_cluster_prune", "_chunk_device_bytes",
+    "candidate_windows", "build_problem_batches", "candidate_layout", "compute_mapq",
+    "_chunk_device_bytes",
 )
 
 

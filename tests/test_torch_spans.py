@@ -152,17 +152,44 @@ def job(tmp_path_factory, port_native):  # noqa: F811
     decoy = build_decoy(panel, k=cfg.kmer, w=cfg.window,
                         max_hits_per_minimizer=hits)
     timings = {}
+    # Each election's rows and rounds, each prune's input rows and each
+    # finalize_chunk's winners, seen from outside the functions.
+    seen = {"elect": [], "prune": [], "finalize": []}
+
+    def spy(name, record):
+        fn = getattr(tpipe, name)
+
+        def wrapper(*a, **k):
+            out = fn(*a, **k)
+            seen[record[0]].append(record[1](a, out))
+            return out
+
+        return name, fn, wrapper
+
+    spies = [
+        spy("elect", ("elect", lambda a, out: (len(a[0]), out[2]))),
+        spy("prune_secondaries", ("prune", lambda a, out: len(a[0].read))),
+        spy("cross_cluster_prune", ("prune", lambda a, out: len(a[0].read))),
+        spy("finalize_chunk", ("finalize", lambda a, out: len(out[0].read))),
+    ]
     with native_installed(port_native, tnative), Probes(cfg) as probes:
         assert tpipe.use_device_scan(cfg)
-        t0 = time.perf_counter()
-        counts, _, winners = tpipe.align_and_count(
-            ReadStream(str(tmp / "reads.fastq")), panel, index, cfg,
-            GenotypeConfig(), device=CPU, timings=timings, decoy=decoy,
-            chunk_reads=30, flush_every=2, engine="v3")
-        wall = time.perf_counter() - t0
+        for name, _, wrapper in spies:
+            setattr(tpipe, name, wrapper)
+        try:
+            t0 = time.perf_counter()
+            counts, _, winners = tpipe.align_and_count(
+                ReadStream(str(tmp / "reads.fastq")), panel, index, cfg,
+                GenotypeConfig(), device=CPU, timings=timings, decoy=decoy,
+                chunk_reads=30, flush_every=2, engine="v3")
+            wall = time.perf_counter() - t0
+        finally:
+            for name, fn, _ in spies:
+                setattr(tpipe, name, fn)
     assert counts and len(winners.read) > 0
     return SimpleNamespace(timings=timings, work=probes.work, wall=wall,
-                           cfg=cfg, n_reads=len(names), counts=counts)
+                           cfg=cfg, n_reads=len(names), counts=counts,
+                           seen=seen)
 
 
 def test_job_writes_every_key(job):
@@ -223,6 +250,24 @@ def test_count_counters_add_up(job):
     assert t["count_crossings"] == sum(a + b for a, b in job.counts.values())
     assert t["count_entries"] >= t["count_crossings"] >= t["audit_line_rows"]
     assert t["audit_line_rows"] > 0
+
+
+def test_election_counters_count_the_elections(job):
+    """``elect_rows`` is the rows handed to the three elections of each
+    chunk (``finalize_chunk``'s alive chains, each prune's input winners),
+    and ``elect_rounds`` the rounds they took."""
+    t, seen = job.timings, job.seen
+    assert len(seen["finalize"]) == t["n_chunks"] == 3
+    assert len(seen["prune"]) == 2 * t["n_chunks"]
+    assert len(seen["elect"]) == 3 * t["n_chunks"]
+    assert t["elect_rows"] == sum(rows for rows, _ in seen["elect"])
+    assert t["elect_rounds"] == sum(rounds for _, rounds in seen["elect"])
+    # The prunes elect over their whole input; finalize_chunk over its
+    # alive chains, at least one a winner, at most one a candidate.
+    finalized = t["elect_rows"] - sum(seen["prune"])
+    assert sum(seen["finalize"]) <= finalized <= t["n_candidates"]
+    assert seen["prune"][0] == seen["finalize"][0]
+    assert 1 <= t["elect_rounds"] <= t["elect_rows"]
 
 
 def _ctx(*jobs):
