@@ -951,8 +951,9 @@ def prune_secondaries(
     done, real [qs..qe] spans exist — re-run the mask_level rule per
     (read, cluster) on them before counting, by score, the dense rows only.
 
-    ``timings`` (a dict, or None) gains the rows elected (``elect_rows``)
-    and the election's rounds (``elect_rounds``).
+    ``timings`` (a dict, or None) gains the rows elected (``elect_rows``),
+    the election's rounds (``elect_rounds``) and the rows below the density
+    floor (``density_dropped``).
     """
     n = len(winners.read)
     if n == 0:
@@ -973,6 +974,7 @@ def prune_secondaries(
                               eligible=dense)
     add(timings, "elect_rows", n)
     add(timings, "elect_rounds", rounds)
+    add(timings, "density_dropped", 0 if dense is None else n - dense.sum())
     keep = np.zeros(n, dtype=bool)
     keep[order] = keep_s
     return _keep_winners(winners, keep)
@@ -1446,12 +1448,13 @@ LOOP_SPANS = (
 #: audit's ``audit_table_s``, ``audit_assembly_s`` and ``audit_dp_s``, and
 #: ``count_support_s`` in ``count_s``; and the seeder thread's
 #: ``seed_cpu_s`` (its wall time per chunk) with ``scan_wait_s`` (the wait
-#: for the device scan's bitmask) and ``decoy_s`` (the decoy's
-#: suppression of the chunk's candidates) inside it.
+#: for the device scan's bitmask), ``decoy_s`` (the decoy's
+#: suppression of the chunk's candidates) and ``chain_s`` (lookup and
+#: chaining, :func:`seed_candidates`) inside it.
 NESTED_SPANS = (
     "finalize_s", "prune_s", "audit_table_s", "audit_assembly_s",
     "audit_dp_s", "count_support_s", "seed_cpu_s", "scan_wait_s",
-    "decoy_s",
+    "decoy_s", "chain_s",
 )
 #: Work handed to each step: chunks pulled, candidates seeded, winners
 #: counted; the forward DP's kept windows and Σ m, the reverse pass's
@@ -1463,7 +1466,11 @@ NESTED_SPANS = (
 #: the forward and reverse DP rows on paths that own an INV or BND link,
 #: and winners on paths whose walk spans two chromosomes; the rows entering
 #: the three mask_level elections (:func:`elect`: ``finalize_chunk``'s
-#: primary set and both prunes) and the rounds they took.
+#: primary set and both prunes) and the rounds they took. The repeats'
+#: work: the decoy-index rows competing in the decoy's suppression
+#: (``decoy_chains``), Σ anchors over the seeded chains, each chain once
+#: (``chain_anchors``), and the winners the score-density floor of
+#: :func:`prune_secondaries` removes (``density_dropped``).
 WORK_COUNTERS = (
     "n_chunks", "n_candidates", "n_winners", "dp_problems", "dp_rows",
     "rev_problems", "rev_rows", "audit_pieces", "audit_rows",
@@ -1471,6 +1478,7 @@ WORK_COUNTERS = (
     "count_crossings", "audit_line_rows", "decoy_suppressed",
     "count_crossings_inv", "count_crossings_bnd", "dp_rows_inv_bnd",
     "rev_rows_inv_bnd", "winners_cross_chrom", "elect_rows", "elect_rounds",
+    "decoy_chains", "chain_anchors", "density_dropped",
 )
 
 
@@ -1689,49 +1697,62 @@ def align_and_count(
         Host lookup and chaining, after the host scan or (``scan_out``, the
         device scan's pending bitmask) one wait for the bitmask's copy; no
         device call. Returns (candidates, {"seed_cpu_s": the call's seconds,
-        "scan_wait_s": the wait's, "decoy_s": the decoy's,
-        "decoy_suppressed": the panel candidates it removed}).
+        "scan_wait_s": the wait's, "chain_s": the lookup and chaining's,
+        "decoy_s": the decoy's, and the counts "chain_anchors" (Σ anchors
+        of the seeded chains), "decoy_chains" (the decoy rows competing)
+        and "decoy_suppressed" (the panel candidates removed)}).
         """
-        spent: Dict[str, float] = {}  # and the count decoy_suppressed
+        spent: Dict[str, float] = {}  # and the counts
         with span(spent, "seed_cpu_s", "align.seed"):
             bits = None
             if scan_out is not None:
                 with span(spent, "scan_wait_s", "align.seed.scan_wait"):
                     bits = dev_scan.fetch_bitmask(scan_out)
-            cands = seed_candidates(
-                chunk, seed_index, chain_params=chain_params,
-                threads=align_cfg.threads,
-                panel_path_limit=(
-                    n_panel_paths
-                    if decoy is not None and not sharded_decoy
-                    else 0
-                ),
-                bits=bits,
-            )
+            with span(spent, "chain_s", "align.seed.chain"):
+                cands = seed_candidates(
+                    chunk, seed_index, chain_params=chain_params,
+                    threads=align_cfg.threads,
+                    panel_path_limit=(
+                        n_panel_paths
+                        if decoy is not None and not sharded_decoy
+                        else 0
+                    ),
+                    bits=bits,
+                )
+            # A chain's blocks are contiguous rows sharing its id.
+            head = np.ones(len(cands), dtype=bool)
+            head[1:] = cands.chain[1:] != cands.chain[:-1]
+            spent["chain_anchors"] = int(cands.n_anchors[head].sum())
             if decoy is not None and len(cands):
                 with span(spent, "decoy_s", "align.seed.decoy"):
+                    from .decoy import suppress_candidates
+
                     if sharded_decoy:
+                        # dist/decoy_shard.py:suppress_candidates_sharded,
+                        # with the decoy rows it hands in counted.
                         from ..dist.decoy_shard import (
-                            suppress_candidates_sharded,
+                            apply_global_chain_cap, union_decoy_chains,
                         )
 
-                        keep, dec_other, dec_same = (
-                            suppress_candidates_sharded(
-                                chunk, cands, index, list(decoy),
-                                chain_params, threads=align_cfg.threads,
-                            ))
+                        shards = list(decoy)
+                        dec = apply_global_chain_cap(
+                            union_decoy_chains(chunk, shards, chain_params,
+                                               threads=align_cfg.threads),
+                            len(shards[0].decoy.index.path_len),
+                            chain_params.max_chains)
+                        whole = shards[0].decoy
                     else:
-                        from .decoy import suppress_candidates
-
                         is_panel = cands.path < n_panel_paths
                         dec = cands.take(~is_panel,
                                          path_offset=-n_panel_paths)
                         cands = cands.take(is_panel)
-                        keep, dec_other, dec_same = suppress_candidates(
-                            chunk, cands, index, decoy, chain_params,
-                            threads=align_cfg.threads, dec=dec,
-                            return_margins=True,
-                        )
+                        whole = decoy
+                    spent["decoy_chains"] = len(dec)
+                    keep, dec_other, dec_same = suppress_candidates(
+                        chunk, cands, index, whole, chain_params,
+                        threads=align_cfg.threads, dec=dec,
+                        return_margins=True,
+                    )
                     cands.dec_other = dec_other
                     cands.dec_same = dec_same
                     spent["decoy_suppressed"] = int((~keep).sum())

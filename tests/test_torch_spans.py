@@ -6,9 +6,12 @@ One job runs on a simulated genome with the ``v3`` engine (its plain
 version on the CPU) and the device scan (its plain version, chaining in the
 port's native library), inside ``benchmark.run.Probes``: every key is
 written, the nested spans fit in their parents, and the counters give the
-probes' counted work exactly.
+probes' counted work exactly. The seeding's counters are held to what the
+job's seeding and decoy calls were handed, and the density floor's to a
+direct filter of synthetic rows around it.
 """
 
+import contextlib
 import json
 import threading
 import time
@@ -25,6 +28,7 @@ from svjedi_tpu_torch.align import pipeline as tpipe
 from svjedi_tpu_torch.utils import native as tnative
 from svjedi_tpu_torch.utils import spans
 from test_torch_dev_scan import native_installed, port_native  # noqa: F401
+from test_torch_elect import _case, _reads, _winners
 
 torch.set_num_threads(1)
 
@@ -38,7 +42,7 @@ OLD_KEYS = ("seed_s", "seed_cpu_s", "dp_s", "fwd_exec_s", "rev_disp_s",
 COUNT_COUNTERS = ("count_entries", "count_crossings", "audit_line_rows")
 #: The counters of INV and BND work and of paths across chromosomes, none of
 #: which this job's one-chromosome DEL/INS catalogue has; and the decoy's
-#: removals, which it may lack.
+#: and the density floor's removals, which it may lack.
 ALLTYPES_COUNTERS = ("count_crossings_inv", "count_crossings_bnd",
                      "dp_rows_inv_bnd", "rev_rows_inv_bnd",
                      "winners_cross_chrom")
@@ -52,7 +56,10 @@ NEW_METRICS = {
     "prune_ms_per_job": "prune_s",
     "count_support_ms_per_job": "count_support_s",
     "audit_table_ms_per_job": "audit_table_s",
+    "chain_ms_per_job": "chain_s",
 }
+#: Counters that may read 0 on a random-sequence job.
+MAYBE_ZERO = ("decoy_suppressed", "density_dropped")
 
 
 def _events(prof, tmp_path):
@@ -153,8 +160,20 @@ def job(tmp_path_factory, port_native):  # noqa: F811
                         max_hits_per_minimizer=hits)
     timings = {}
     # Each election's rows and rounds, each prune's input rows and each
-    # finalize_chunk's winners, seen from outside the functions.
-    seen = {"elect": [], "prune": [], "finalize": []}
+    # finalize_chunk's winners, seen from outside the functions; and the
+    # seeding's view: the chains seeded, the decoy rows handed to the
+    # suppression, the rows below the density floor of each
+    # prune_secondaries, and the seeder's (chain_s, seed_cpu_s) per chunk.
+    seen = {"elect": [], "prune": [], "finalize": [], "seeded": [],
+            "decoy_rows": [], "below_floor": [], "chunk_spans": []}
+    floor = cfg.min_density_millis
+
+    def pruned(winners):
+        span = np.maximum(winners.qe - winners.qs + 1,
+                          winners.te - winners.ts + 1)
+        seen["below_floor"].append(
+            int((winners.score * 1000 < floor * span).sum()))
+        return len(winners.read)
 
     def spy(name, record):
         fn = getattr(tpipe, name)
@@ -168,14 +187,38 @@ def job(tmp_path_factory, port_native):  # noqa: F811
 
     spies = [
         spy("elect", ("elect", lambda a, out: (len(a[0]), out[2]))),
-        spy("prune_secondaries", ("prune", lambda a, out: len(a[0].read))),
+        spy("prune_secondaries", ("prune", lambda a, out: pruned(a[0]))),
         spy("cross_cluster_prune", ("prune", lambda a, out: len(a[0].read))),
         spy("finalize_chunk", ("finalize", lambda a, out: len(out[0].read))),
+        spy("seed_candidates", ("seeded", lambda a, out: out)),
     ]
+    from svjedi_tpu_torch.align import decoy as tdecoy
+
+    suppress = tdecoy.suppress_candidates
+
+    def suppress_spy(*a, **k):
+        seen["decoy_rows"].append(len(k["dec"]))
+        return suppress(*a, **k)
+
+    span = tpipe.span
+    chunk = {}
+
+    @contextlib.contextmanager
+    def span_spy(spent, key, name):
+        with span(spent, key, name):
+            yield
+        # The seeder's spans close chain_s, then seed_cpu_s, per chunk.
+        if key == "chain_s":
+            chunk["chain_s"] = spent[key]
+        elif key == "seed_cpu_s":
+            seen["chunk_spans"].append((chunk.pop("chain_s"), spent[key]))
+
     with native_installed(port_native, tnative), Probes(cfg) as probes:
         assert tpipe.use_device_scan(cfg)
         for name, _, wrapper in spies:
             setattr(tpipe, name, wrapper)
+        tdecoy.suppress_candidates = suppress_spy
+        tpipe.span = span_spy
         try:
             t0 = time.perf_counter()
             counts, _, winners = tpipe.align_and_count(
@@ -184,7 +227,9 @@ def job(tmp_path_factory, port_native):  # noqa: F811
                 chunk_reads=30, flush_every=2, engine="v3")
             wall = time.perf_counter() - t0
         finally:
-            for name, fn, _ in spies:
+            tpipe.span = span
+            tdecoy.suppress_candidates = suppress
+            for name, fn, _ in reversed(spies):
                 setattr(tpipe, name, fn)
     assert counts and len(winners.read) > 0
     return SimpleNamespace(timings=timings, work=probes.work, wall=wall,
@@ -204,9 +249,10 @@ def test_job_writes_every_key(job):
         assert type(t[key]) is int, key
         if key in ALLTYPES_COUNTERS:
             assert t[key] == 0, key
-        elif key != "decoy_suppressed":
+        elif key not in MAYBE_ZERO:
             assert t[key] > 0, key
-    assert t["decoy_suppressed"] >= 0
+    for key in MAYBE_ZERO:
+        assert t[key] >= 0, key
 
 
 def test_nested_spans_fit_in_their_parents(job):
@@ -214,7 +260,7 @@ def test_nested_spans_fit_in_their_parents(job):
     assert t["finalize_s"] <= t["rev_disp_s"]
     assert (t["prune_s"] + t["count_support_s"] + t["audit_table_s"]
             + t["audit_assembly_s"] + t["audit_dp_s"]) <= t["count_s"]
-    assert t["scan_wait_s"] + t["decoy_s"] <= t["seed_cpu_s"]
+    assert t["scan_wait_s"] + t["decoy_s"] + t["chain_s"] <= t["seed_cpu_s"]
     assert sum(t[k] for k in tpipe.LOOP_SPANS) <= job.wall
 
 
@@ -268,6 +314,67 @@ def test_election_counters_count_the_elections(job):
     assert sum(seen["finalize"]) <= finalized <= t["n_candidates"]
     assert seen["prune"][0] == seen["finalize"][0]
     assert 1 <= t["elect_rounds"] <= t["elect_rows"]
+
+
+def test_chain_span_nests_in_each_chunks_seeding(job):
+    """``chain_s`` closes inside ``seed_cpu_s`` in every chunk, and the
+    chunks' sum is the job's."""
+    chunks = job.seen["chunk_spans"]
+    assert len(chunks) == job.timings["n_chunks"] == 3
+    for chain_s, seed_cpu_s in chunks:
+        assert 0 < chain_s <= seed_cpu_s
+    assert job.timings["chain_s"] == pytest.approx(sum(c for c, _ in chunks))
+
+
+def test_decoy_chains_are_the_rows_the_suppression_receives(job):
+    rows = job.seen["decoy_rows"]
+    assert len(rows) == job.timings["n_chunks"]
+    assert job.timings["decoy_chains"] == sum(rows) > 0
+
+
+def test_chain_anchors_sum_each_chain_once(job):
+    """A plain per-chain sum over every chunk's seeded rows: each chain's
+    anchors (the same on all its block rows) counted once."""
+    total = 0
+    for cands in job.seen["seeded"]:
+        chains = {}
+        for c, a in zip(cands.chain.tolist(), cands.n_anchors.tolist()):
+            assert chains.setdefault(c, a) == a
+        total += sum(chains.values())
+    assert len(job.seen["seeded"]) == job.timings["n_chunks"]
+    assert job.timings["chain_anchors"] == total > 0
+
+
+def test_density_dropped_counts_the_jobs_floor(job):
+    assert job.timings["density_dropped"] == sum(job.seen["below_floor"])
+
+
+@pytest.mark.parametrize("name", ["density", "ties", "empty"])
+def test_density_dropped_counts_the_floor(name):
+    """On rows around the floor (500 per 1,000 bases), ``density_dropped``
+    is the rows a direct filter puts below it."""
+    c = _case(name, 29)
+    cfg = SimpleNamespace(min_density_millis=500)
+    w = _winners(tpipe, c)
+    below = int((w.score * 1000 < 500 * np.maximum(
+        w.qe - w.qs + 1, w.te - w.ts + 1)).sum())
+    timings = {}
+    tpipe.prune_secondaries(w, _reads(c), cfg, timings=timings)
+    assert timings.get("density_dropped", 0) == below
+    assert (below > 0) == (name == "density")
+    timings = {}
+    tpipe.prune_secondaries(_winners(tpipe, c), _reads(c), timings=timings)
+    assert timings.get("density_dropped", 0) == 0
+
+
+def test_decoy_chains_reader():
+    read = cells.metric_reader("decoy_chains_k_per_job")
+    ctx = _ctx({"timings": {"decoy_chains": 3000}},
+               {"timings": {"decoy_chains": 5000}})
+    assert read(ctx) == pytest.approx(4.0)
+    assert read(_ctx({"timings": {"decoy_chains": 1}},
+                     {"timings": {}})) is None
+    assert read(_ctx()) is None
 
 
 def _ctx(*jobs):
