@@ -38,6 +38,7 @@ from ..config import AlignConfig, GenotypeConfig
 from ..graph.cluster import Panel
 from ..io.fastq import ReadSet
 from ..utils.spans import add, span
+from .compete import suppress_merged
 from .extend import DPParams
 from .index import PanelIndex
 from .seed import Candidates, ChainParams, seed_candidates
@@ -1470,7 +1471,10 @@ NESTED_SPANS = (
 #: work: the decoy-index rows competing in the decoy's suppression
 #: (``decoy_chains``), Σ anchors over the seeded chains, each chain once
 #: (``chain_anchors``), and the winners the score-density floor of
-#: :func:`prune_secondaries` removes (``density_dropped``).
+#: :func:`prune_secondaries` removes (``density_dropped``). The panel
+#: chains :func:`suppress_merged` judged from the chain boundaries of the
+#: merged scan's rows (``decoy_panel_chains``; 0 where it ran the
+#: row-copying sequence).
 WORK_COUNTERS = (
     "n_chunks", "n_candidates", "n_winners", "dp_problems", "dp_rows",
     "rev_problems", "rev_rows", "audit_pieces", "audit_rows",
@@ -1478,7 +1482,7 @@ WORK_COUNTERS = (
     "count_crossings", "audit_line_rows", "decoy_suppressed",
     "count_crossings_inv", "count_crossings_bnd", "dp_rows_inv_bnd",
     "rev_rows_inv_bnd", "winners_cross_chrom", "elect_rows", "elect_rounds",
-    "decoy_chains", "chain_anchors", "density_dropped",
+    "decoy_chains", "chain_anchors", "density_dropped", "decoy_panel_chains",
 )
 
 
@@ -1691,6 +1695,30 @@ def align_and_count(
     )
     device_datas: Dict[int, object] = {}
 
+    def suppress_sharded(chunk: ReadSet, cands: Candidates, spent):
+        """dist/decoy_shard.py:suppress_candidates_sharded, with the decoy
+        rows it hands in counted into ``spent``."""
+        from ..dist.decoy_shard import (
+            apply_global_chain_cap, union_decoy_chains,
+        )
+        from .decoy import suppress_candidates
+
+        shards = list(decoy)
+        dec = apply_global_chain_cap(
+            union_decoy_chains(chunk, shards, chain_params,
+                               threads=align_cfg.threads),
+            len(shards[0].decoy.index.path_len),
+            chain_params.max_chains)
+        spent["decoy_chains"] = len(dec)
+        keep, dec_other, dec_same = suppress_candidates(
+            chunk, cands, index, shards[0].decoy, chain_params,
+            threads=align_cfg.threads, dec=dec, return_margins=True,
+        )
+        cands.dec_other = dec_other
+        cands.dec_same = dec_same
+        spent["decoy_suppressed"] = int((~keep).sum())
+        return cands if keep.all() else cands.take(keep)
+
     def seed_chunk(chunk: ReadSet, scan_out=None):
         """Seed + decoy-suppress one chunk (runs on the seeder thread).
 
@@ -1699,8 +1727,10 @@ def align_and_count(
         device call. Returns (candidates, {"seed_cpu_s": the call's seconds,
         "scan_wait_s": the wait's, "chain_s": the lookup and chaining's,
         "decoy_s": the decoy's, and the counts "chain_anchors" (Σ anchors
-        of the seeded chains), "decoy_chains" (the decoy rows competing)
-        and "decoy_suppressed" (the panel candidates removed)}).
+        of the seeded chains), "decoy_chains" (the decoy rows competing),
+        "decoy_suppressed" (the panel candidates removed) and
+        "decoy_panel_chains" (the panel chains :func:`suppress_merged`
+        judged from chain boundaries)}).
         """
         spent: Dict[str, float] = {}  # and the counts
         with span(spent, "seed_cpu_s", "align.seed"):
@@ -1725,39 +1755,13 @@ def align_and_count(
             spent["chain_anchors"] = int(cands.n_anchors[head].sum())
             if decoy is not None and len(cands):
                 with span(spent, "decoy_s", "align.seed.decoy"):
-                    from .decoy import suppress_candidates
-
-                    if sharded_decoy:
-                        # dist/decoy_shard.py:suppress_candidates_sharded,
-                        # with the decoy rows it hands in counted.
-                        from ..dist.decoy_shard import (
-                            apply_global_chain_cap, union_decoy_chains,
-                        )
-
-                        shards = list(decoy)
-                        dec = apply_global_chain_cap(
-                            union_decoy_chains(chunk, shards, chain_params,
-                                               threads=align_cfg.threads),
-                            len(shards[0].decoy.index.path_len),
-                            chain_params.max_chains)
-                        whole = shards[0].decoy
+                    if not sharded_decoy:
+                        cands, counts = suppress_merged(
+                            chunk, cands, n_panel_paths, index, decoy,
+                            threads=align_cfg.threads, head=head)
+                        spent.update(counts)
                     else:
-                        is_panel = cands.path < n_panel_paths
-                        dec = cands.take(~is_panel,
-                                         path_offset=-n_panel_paths)
-                        cands = cands.take(is_panel)
-                        whole = decoy
-                    spent["decoy_chains"] = len(dec)
-                    keep, dec_other, dec_same = suppress_candidates(
-                        chunk, cands, index, whole, chain_params,
-                        threads=align_cfg.threads, dec=dec,
-                        return_margins=True,
-                    )
-                    cands.dec_other = dec_other
-                    cands.dec_same = dec_same
-                    spent["decoy_suppressed"] = int((~keep).sum())
-                    if not keep.all():
-                        cands = cands.take(keep)
+                        cands = suppress_sharded(chunk, cands, spent)
         return cands, spent
 
     # Chunk pipeline: while chunk i's DP batches execute on the device, the

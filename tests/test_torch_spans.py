@@ -161,11 +161,11 @@ def job(tmp_path_factory, port_native):  # noqa: F811
     timings = {}
     # Each election's rows and rounds, each prune's input rows and each
     # finalize_chunk's winners, seen from outside the functions; and the
-    # seeding's view: the chains seeded, the decoy rows handed to the
-    # suppression, the rows below the density floor of each
+    # seeding's view: the chains seeded, each decoy competition's arguments
+    # and result, the rows below the density floor of each
     # prune_secondaries, and the seeder's (chain_s, seed_cpu_s) per chunk.
     seen = {"elect": [], "prune": [], "finalize": [], "seeded": [],
-            "decoy_rows": [], "below_floor": [], "chunk_spans": []}
+            "competed": [], "below_floor": [], "chunk_spans": []}
     floor = cfg.min_density_millis
 
     def pruned(winners):
@@ -191,15 +191,8 @@ def job(tmp_path_factory, port_native):  # noqa: F811
         spy("cross_cluster_prune", ("prune", lambda a, out: len(a[0].read))),
         spy("finalize_chunk", ("finalize", lambda a, out: len(out[0].read))),
         spy("seed_candidates", ("seeded", lambda a, out: out)),
+        spy("suppress_merged", ("competed", lambda a, out: (a, out))),
     ]
-    from svjedi_tpu_torch.align import decoy as tdecoy
-
-    suppress = tdecoy.suppress_candidates
-
-    def suppress_spy(*a, **k):
-        seen["decoy_rows"].append(len(k["dec"]))
-        return suppress(*a, **k)
-
     span = tpipe.span
     chunk = {}
 
@@ -217,7 +210,6 @@ def job(tmp_path_factory, port_native):  # noqa: F811
         assert tpipe.use_device_scan(cfg)
         for name, _, wrapper in spies:
             setattr(tpipe, name, wrapper)
-        tdecoy.suppress_candidates = suppress_spy
         tpipe.span = span_spy
         try:
             t0 = time.perf_counter()
@@ -228,7 +220,6 @@ def job(tmp_path_factory, port_native):  # noqa: F811
             wall = time.perf_counter() - t0
         finally:
             tpipe.span = span
-            tdecoy.suppress_candidates = suppress
             for name, fn, _ in reversed(spies):
                 setattr(tpipe, name, fn)
     assert counts and len(winners.read) > 0
@@ -327,9 +318,32 @@ def test_chain_span_nests_in_each_chunks_seeding(job):
 
 
 def test_decoy_chains_are_the_rows_the_suppression_receives(job):
-    rows = job.seen["decoy_rows"]
-    assert len(rows) == job.timings["n_chunks"]
+    """The decoy rows among the merged rows each competition received
+    (paths from ``n_panel_paths`` on)."""
+    calls = job.seen["competed"]
+    assert len(calls) == job.timings["n_chunks"]
+    rows = [int((a[1].path >= a[2]).sum()) for a, _ in calls]
     assert job.timings["decoy_chains"] == sum(rows) > 0
+
+
+def test_decoy_panel_chains_counts_the_boundary_path(job):
+    """With the library built, each competition judged every panel chain of
+    its rows from chain boundaries; without it the same rows take the
+    row-copying sequence, which counts 0 and keeps the same rows."""
+    judged = 0
+    for (chunk, cands, n_panel, index, decoy), (kept, counts) in (
+            job.seen["competed"]):
+        head = np.ones(len(cands), dtype=bool)
+        head[1:] = cands.chain[1:] != cands.chain[:-1]
+        judged += int((cands.path[head] < n_panel).sum())
+        assert counts["decoy_panel_chains"] > 0
+        with native_installed(None, tnative):
+            plain, plain_counts = tpipe.suppress_merged(
+                chunk, cands, n_panel, index, decoy)
+        assert plain_counts == dict(counts, decoy_panel_chains=0)
+        for name in ("read", "chain", "d0", "dec_other", "dec_same"):
+            assert np.array_equal(getattr(plain, name), getattr(kept, name))
+    assert job.timings["decoy_panel_chains"] == judged > 0
 
 
 def test_chain_anchors_sum_each_chain_once(job):
